@@ -8,7 +8,7 @@ EISMINT II table quantities (volume, area, divide thickness, divide basal
 temperature; Payne et al. 2000).
 
 Usage:
-  python examples/eismint2_suite.py [--years 200000] [--mx 61] [--platform tpu]
+  python examples/eismint2_suite.py [--years 200000] [--mx 61] [--platform gpu]
   (--experiments A,...,L; restarts B-F need A in the list)
 """
 
@@ -17,12 +17,8 @@ import sys as _sys
 
 # runnable as `python examples/<name>.py` without installing
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-import jax as _jax_cc
-_jax_cc.config.update("jax_compilation_cache_dir", _os.environ.get(
-    "JAX_COMPILATION_CACHE_DIR", _os.path.join(
-        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-        ".jax_cache")))
-_jax_cc.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from pism_tpu.util.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import argparse
 import json
@@ -43,7 +39,8 @@ def main():
 
     if args.platform:
         import jax
-        jax.config.update("jax_platforms", args.platform)
+        from pism_tpu.cli import jax_platforms
+        jax.config.update("jax_platforms", jax_platforms(args.platform))
     import jax
     import jax.numpy as jnp
 

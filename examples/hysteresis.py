@@ -22,12 +22,8 @@ import sys as _sys
 
 # runnable as `python examples/<name>.py` without installing
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-import jax as _jax_cc
-_jax_cc.config.update("jax_compilation_cache_dir", _os.environ.get(
-    "JAX_COMPILATION_CACHE_DIR", _os.path.join(
-        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-        ".jax_cache")))
-_jax_cc.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from pism_tpu.util.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import argparse
 import json

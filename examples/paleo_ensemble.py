@@ -3,7 +3,7 @@
 The reference runs Antarctic paleo ensembles (Garbe-style hysteresis sweeps)
 as independent MPI jobs driven by shell scripts; here the ensemble is ONE
 SPMD program: members ride a vmapped leading axis of the state pytree and
-shard over the "e" axis of a device mesh (pod slices / DCN), while each
+shard over the "e" axis of a device mesh, while each
 member's (y, x) fields can shard over the remaining axes (SURVEY.md §2.5).
 
 Each member gets its own temperature offset dT and precipitation scaling
@@ -18,12 +18,8 @@ import sys as _sys
 
 # runnable as `python examples/<name>.py` without installing
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-import jax as _jax_cc
-_jax_cc.config.update("jax_compilation_cache_dir", _os.environ.get(
-    "JAX_COMPILATION_CACHE_DIR", _os.path.join(
-        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-        ".jax_cache")))
-_jax_cc.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from pism_tpu.util.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import argparse
 import json

@@ -18,12 +18,8 @@ import sys as _sys
 
 # runnable as `python examples/<name>.py` without installing
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-import jax as _jax_cc
-_jax_cc.config.update("jax_compilation_cache_dir", _os.environ.get(
-    "JAX_COMPILATION_CACHE_DIR", _os.path.join(
-        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-        ".jax_cache")))
-_jax_cc.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from pism_tpu.util.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import argparse
 import time
@@ -55,18 +51,17 @@ VARIANTS_SKIP = [
     ("mixed, skip 0.5", {"stress_balance.ssa.fd.solve_dtype": "mixed"}),
 ]
 
-# round-3 first sweep (10 reps each, one v5e chip, warm 5 km state):
-#   baseline (eta_max 0.3, frozen beta)    52.3 ms  newton=18 krylov=75
-#   eta_max 0.05                          110.3 ms  newton=17 krylov=304
-#   endgame range 100                      47.0 ms  newton=12 krylov=92
-#   endgame range 1e3                      90.2 ms  newton=18 krylov=209
-#   endgame range 1e6                     103.5 ms  newton=13 krylov=293
-#   exact drag J                           86.7 ms  newton=13 krylov=221
-#   exact + endgame 1e3                   144.0 ms  newton=10 krylov=459
+# round-3 first sweep (warm 5 km state; Newton sweeps / Krylov iterations):
+#   baseline (eta_max 0.3, frozen beta)    newton=18 krylov=75
+#   eta_max 0.05                           newton=17 krylov=304
+#   endgame range 100                      newton=12 krylov=92
+#   endgame range 1e3                      newton=18 krylov=209
+#   endgame range 1e6                      newton=13 krylov=293
+#   exact drag J                           newton=13 krylov=221
+#   exact + endgame 1e3                    newton=10 krylov=459
 # -> outer contraction is floored at ~0.5/sweep by the frozen-beta
 #    linearization (tight inner solves do NOT cut sweeps), so the winning
-#    strategy is loose-eta sweeps with a short tightened endgame; per-sweep
-#    fixed overhead (~1.9 ms) dominates per-Krylov cost (~0.25 ms/it).
+#    strategy is loose-eta sweeps with a short tightened endgame.
 
 
 def main():

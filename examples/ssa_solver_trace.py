@@ -9,7 +9,7 @@ line-search alpha, and whether the Newton or the Picard-safeguard candidate
 was taken. This is the tool that exposed the round-2 solver fixes (wasted
 breakdown sweeps at an unreachable tolerance; over-tight warmup solves).
 
-Usage: python examples/ssa_solver_trace.py [--km 5] [--platform tpu]
+Usage: python examples/ssa_solver_trace.py [--km 5] [--platform gpu]
 """
 
 import os as _os
@@ -17,12 +17,8 @@ import sys as _sys
 
 # runnable as `python examples/<name>.py` without installing
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-import jax as _jax_cc
-_jax_cc.config.update("jax_compilation_cache_dir", _os.environ.get(
-    "JAX_COMPILATION_CACHE_DIR", _os.path.join(
-        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-        ".jax_cache")))
-_jax_cc.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from pism_tpu.util.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import argparse
 import time
@@ -38,7 +34,8 @@ def main():
     args = ap.parse_args()
     if args.platform:
         import jax
-        jax.config.update("jax_platforms", args.platform)
+        from pism_tpu.cli import jax_platforms
+        jax.config.update("jax_platforms", jax_platforms(args.platform))
     import jax
     import jax.numpy as jnp
     import numpy as np

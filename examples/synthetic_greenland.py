@@ -17,12 +17,8 @@ import sys as _sys
 
 # runnable as `python examples/<name>.py` without installing
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-import jax as _jax_cc
-_jax_cc.config.update("jax_compilation_cache_dir", _os.environ.get(
-    "JAX_COMPILATION_CACHE_DIR", _os.path.join(
-        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
-        ".jax_cache")))
-_jax_cc.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+from pism_tpu.util.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import argparse
 import json
@@ -83,9 +79,8 @@ def main():
         "time_stepping.skip.enabled": args.skip > 1,
         "time_stepping.skip.max": max(args.skip, 1),
         "runtime.float_dtype": "float32" if args.float32 else "float64",
-        # on-device while_loop segments work on the TPU runtime with the
-        # mixed-precision SSA (1.5x over host-dispatched steps); --host-loop
-        # restores the old behavior for debugging
+        # on-device while_loop segments; --host-loop dispatches one step
+        # at a time, for debugging
         "runtime.device_loop": not args.host_loop,
     })
     if args.ssa_dtype:

@@ -1,12 +1,13 @@
-"""pism_tpu: a TPU-native ice-sheet/ice-shelf modeling framework.
+"""pism_tpu: an accelerator-native ice-sheet/ice-shelf modeling framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of PISM (the Parallel
-Ice Sheet Model; reference fork ``juliusgarbe/pism``). See SURVEY.md at the
-repository root for the layer map and the reference -> TPU design mapping.
+A ground-up JAX/XLA rebuild of the capabilities of PISM (the Parallel Ice
+Sheet Model; reference fork ``juliusgarbe/pism``), run on one NVIDIA GPU or
+several. See SURVEY.md at the repository root for the layer map and the
+reference -> accelerator design mapping.
 
 Double precision is enabled globally: model time spans 1e12+ seconds and
 verification parity targets 1e-6 relative tolerance. Field dtype is
-independently configurable (``runtime.float_dtype``; float32 for TPU
+independently configurable (``runtime.float_dtype``; float32 for production
 performance runs).
 """
 

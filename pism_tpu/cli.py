@@ -206,7 +206,8 @@ def build_parser():
     p.add_argument("-profile", metavar="LOGDIR", default=None,
                    help="write a jax profiler trace of the run to LOGDIR "
                         "(PISM -profile/-log_view role)")
-    p.add_argument("-platform", default=None, help="jax platform (cpu/tpu)")
+    p.add_argument("-platform", default=None,
+                   help="jax platform: cpu, or gpu (an NVIDIA card)")
     p.add_argument("-verbose", type=int, default=2)
     p.add_argument("-list_params", action="store_true",
                    help="print every configuration parameter with type, "
@@ -237,6 +238,13 @@ def _apply_config_overrides(cfg: Config, pairs):
                 cfg.update({k: v})
 
 
+def jax_platforms(platform: str) -> str:
+    """The ``jax_platforms`` value for ``-platform``. JAX expands "gpu" to
+    both "cuda" and "rocm" and fails when either plugin is missing, so
+    "gpu" names the CUDA backend this program targets."""
+    return "cuda" if platform == "gpu" else platform
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.list_params:
@@ -247,9 +255,15 @@ def main(argv=None):
         from .model.diaggen import print_table
         print_table()
         return 0
+    if args.o_format == "netcdf4":
+        from .io import nc4
+        if nc4.h5py is None:
+            print(f"pism_tpu: error: -o {args.o}: {nc4.H5PY_MISSING}",
+                  file=sys.stderr)
+            return 2
     if args.platform:
         import jax
-        jax.config.update("jax_platforms", args.platform)
+        jax.config.update("jax_platforms", jax_platforms(args.platform))
 
     import jax.numpy as jnp
 
@@ -626,19 +640,11 @@ def main(argv=None):
         cfg.update({"time.run_length": args.y})
     if getattr(args, "no_model_strip", None) is not None:
         cfg.update({"regional.no_model_strip": args.no_model_strip})
-    # reference runtime.matmul_precision (XLA dot/conv precision knob)
-    _mm = cfg.get_string("runtime.matmul_precision")
-    if _mm:
-        import jax
-        jax.config.update("jax_default_matmul_precision", _mm)
-    cache_dir = cfg.get_string("runtime.jit.cache_dir")
-    if cache_dir:
-        # persistent XLA compilation cache: compiled executables are reused
-        # across processes (the first-compile cost of km-scale grids is the
-        # dominant startup latency on TPU)
-        import jax
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    # persistent XLA compilation cache: compiled executables are reused
+    # across processes (the first compile of a km-scale grid dominates
+    # start-up)
+    from .util.compile_cache import enable_compile_cache
+    enable_compile_cache(cfg.get_string("runtime.jit.cache_dir"))
 
     no_model_mask = None
     usurf_store = thk_store = None
@@ -792,9 +798,8 @@ def main(argv=None):
 
     # multi-device spatial decomposition (the PETSc DMDA rank layout the
     # reference fixes at -Nx/-Ny): build a ("y", "x") mesh when more than
-    # one accelerator is visible, shard the state over it (GSPMD inserts
-    # the halo collectives) and hand the mesh to the model so the fused
-    # Pallas stencils run per shard (ops.pallas_sharded)
+    # one accelerator is visible and shard the state over it: GSPMD
+    # partitions every stencil and inserts the halo collectives
     mesh = None
     import jax as _jax
     n_dev = len(_jax.devices())
@@ -815,8 +820,7 @@ def main(argv=None):
     model = IceModel(grid=grid, config=cfg, surface=surface,
                      ocean=ocean_model, sea_level=sl_model,
                      no_model_mask=no_model_mask, sliding_mu=sliding_mu,
-                     usurf_store=usurf_store, thk_store=thk_store,
-                     mesh=mesh)
+                     usurf_store=usurf_store, thk_store=thk_store)
 
     if not cfg.get_flag("stress_balance.ssa.read_initial_guess") \
             and (state.u_ssa is not None or state.v_ssa is not None):

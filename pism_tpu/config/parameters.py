@@ -63,7 +63,6 @@ PARAMETERS = {
     "stress_balance.sia.surface_gradient_method": ("haseloff", None, "eta | haseloff | mahaffy"),
     "stress_balance.sia.bed_smoother.range": (5.0e3, "m", "Schoof bed smoother half-width (0 disables)"),
     "stress_balance.sia.limit_diffusivity": (False, None, "cap the SIA diffusivity (and, in this framework, the 3D SIA shear velocities' column flux) at stress_balance.sia.max_diffusivity instead of letting margin cliffs collapse the adaptive dt (reference SIAFD limit_diffusivity)"),
-    "stress_balance.sia.pallas": ("auto", None, "fused Pallas SIA diffusivity+flux kernel: auto (TPU, f32, mahaffy, Paterson-Budd family) | on | off; with a device mesh the kernel runs per shard under shard_map with ppermute halos"),
     "stress_balance.sia.max_diffusivity": (100.0, "m2 s-1", "SIA diffusivity cap / sanity limit"),
     "stress_balance.ssa.flow_law": ("gpbld", None, "flow law for SSA"),
     "stress_balance.ssa.Glen_exponent": (3.0, None, "Glen exponent n (SSA)"),
@@ -76,32 +75,30 @@ PARAMETERS = {
     "stress_balance.ssa.fd.max_iterations": (300, None, "max Picard iterations"),
     "stress_balance.ssa.fd.ksp_rtol": (1.0e-5, None, "inner Krylov relative tolerance (floor; the Eisenstat-Walker forcing loosens it adaptively up to ksp_rtol_max while the outer residual is far from converged)"),
     "stress_balance.ssa.fd.ksp_rtol_max": (0.3, None, "loosest adaptive inner tolerance (Eisenstat-Walker eta_max; set equal to ksp_rtol to disable inexact Newton; 0.3 measured fastest on the 5 km hybrid: a loose direction per sweep beats fewer, tighter sweeps)"),
-    "stress_balance.ssa.fd.preconditioner": ("line", None, "inner-Krylov preconditioner: line (default: alternating-direction line relaxation — u along x, v along y — via batched parallel cyclic reduction; fully fused on TPU, ~2.4x Krylov iteration cut and ~1.6x SSA wall-time vs jacobi at 20 km Greenland scale) | jacobi (point diagonal) | mg (geometric multigrid V-cycle: beats jacobi on smooth high-contrast problems, but on warm production solves the V-cycle-preconditioned BiCGStab breaks down on near-noise-floor Newton systems — every late sweep burns the inner iteration cap and the solve exits on stagnation above tolerance; see docs/VALIDATION.md round-5 autopsy) | linemg (V(1,1) cycle with the line smoother: same breakdown at ~50 PCR solves per capped iteration — 35x slower than line at 5 km; diagnostic only)"),
+    "stress_balance.ssa.fd.preconditioner": ("line", None, "inner-Krylov preconditioner: line (default: alternating-direction line relaxation — u along x, v along y — via batched parallel cyclic reduction; ~2.4x fewer Krylov iterations than jacobi at 20 km Greenland scale) | jacobi (point diagonal) | mg (geometric multigrid V-cycle: beats jacobi on smooth high-contrast problems, but on warm production solves the V-cycle-preconditioned BiCGStab breaks down on near-noise-floor Newton systems — every late sweep burns the inner iteration cap and the solve exits on stagnation above tolerance; see docs/VALIDATION.md round-5 autopsy) | linemg (V(1,1) cycle with the line smoother: same breakdown at ~50 PCR solves per capped iteration; diagnostic only)"),
     "stress_balance.ssa.fd.warmup_ksp_rtol": (1.0e-2, None, "inner Krylov tolerance for Picard warmup/safeguard sweeps (fixed-point sweeps do not need tight inner solves; 1e-2 cuts ~15% of the 5 km solve wall time over 1e-3 with no trajectory effect)"),
     "stress_balance.ssa.fd.ksp_max_it": (300, None, "inner Krylov max iterations"),
     "stress_balance.ssa.fd.nuH_iter_failure_underrelaxation": (0.8, None, "[unimplemented] under-relaxation on retry"),
-    "stress_balance.ssa.fd.line_pcr_dtype": ("f32", None, "precision of the line-preconditioner tridiagonal solves: f32 (default) | bf16 (experimental; measured FASTER per step at 5 km but NOT robust — bf16 eliminations break the inner BiCGStab down on hard warm-start systems even with the signed pivot floor, and the 25-a trajectory shifted 5.4e-3 relative volume, 35x the measured chaotic envelope; see docs/VALIDATION.md round-5 study)"),
-    "stress_balance.ssa.fd.line_pcr_impl": ("xla", None, "line-preconditioner tridiagonal backend: xla (shift-concat rounds) | pallas_sublane (fused single-VMEM-pass kernel, system axis on sublanes)"),
+    "stress_balance.ssa.fd.line_pcr_dtype": ("f32", None, "precision of the line-preconditioner tridiagonal solves: f32 (default) | bf16 (experimental, NOT robust — bf16 eliminations break the inner BiCGStab down on hard warm-start systems even with the signed pivot floor, and the 25-a trajectory shifted 5.4e-3 relative volume, 35x the measured chaotic envelope; see docs/VALIDATION.md round-5 study)"),
     "stress_balance.ssa.fd.line_block": (0, None, "block length of the line-preconditioner tridiagonal solves: 0 = exact whole-line solves; B > 0 solves independent B-cell blocks (fewer cyclic-reduction rounds, less HBM traffic per Krylov iteration, slightly weaker preconditioner)"),
     "stress_balance.ssa.fd.extrapolate_initial_guess": (False, None, "warm-start each production SSA solve from the time-extrapolated previous velocities u0 = u(-1) + (dt/dt(-1)) (u(-1) - u(-2)) instead of u(-1) (rebuild-native Newton-sweep saver; off = reference behavior)"),
     "stress_balance.ssa.fd.beta_floor": (10.0, "Pa s m-1", "tiny drag on all icy cells; regularizes isolated floating cells"),
     "stress_balance.ssa.fd.newton_rtol": (1.0e-7, None, "Newton convergence: |F| <= rtol |b|"),
     "stress_balance.ssa.fd.velocity_change_rtol": (1.0e-4, None, "hard stop when a sweep changes the velocity by less than this relative amount (matches the reference's ssafd_picard_rtol = 1e-4; 0 = run to the precision floor)"),
-    "stress_balance.ssa.fd.pallas_matvec": ("auto", None, "fused Pallas Krylov matvec: auto (TPU, f32, non-periodic) | on | off"),
-    "stress_balance.ssa.fd.solve_dtype": ("auto", None, "auto (default): float32 when the velocity-change stop is active (production; the per-sweep f64 residual costs ~1 ms at 5 km and leaves the iteration history identical), mixed when it is disabled (verification/inverse) | mixed (iterative refinement: f64 iterate + outer residual, f32 Krylov — velocities match float64 to ~1e-6) | float64 (full f64 solve island) | float32 (pure working-precision carry: no high-precision residual at all; residuals below ~3e-5 relative are unresolvable)"),
+    "stress_balance.ssa.fd.solve_dtype": ("auto", None, "auto (default): float32 when the velocity-change stop is active (production; the per-sweep f64 residual leaves the iteration history identical, so it is pure cost), mixed when it is disabled (verification/inverse) | mixed (iterative refinement: f64 iterate + outer residual, f32 Krylov — velocities match float64 to ~1e-6) | float64 (full f64 solve island) | float32 (pure working-precision carry: no high-precision residual at all; residuals below ~3e-5 relative are unresolvable)"),
     "stress_balance.ssa.fd.newton_max_iterations": (100, None, "max Newton iterations"),
     "stress_balance.ssa.fd.picard_warmup": (5, None, "Picard iterations before Newton"),
     "stress_balance.ssa.fd.warmup_skip_rtol": (0.5, None, "skip the Picard warmup (drag-regularization continuation) when the initial residual is already below this fraction of |b| - a warm start from the previous step's velocity; the continuation's nearly-linear-drag first sweeps would move such an iterate AWAY from the solution (0 = never skip)"),
-    "stress_balance.ssa.fd.eta_endgame_range": (16.0, None, "endgame tightening of the Eisenstat-Walker forcing: once |F| <= range * tol, set the inner tolerance to land at ~tol/2 in one sweep instead of contracting by eta_max per sweep through the noise-floor grind (the last 3-4 warm sweeps otherwise burn ~68% of the Krylov work at eta = 0.3); 0 disables. Default 16 measured at the 5 km north-star shape: 64 -> 59.5 ms/step reproducibly, trajectory shift 6e-5 relative volume = well inside the 2e-4 chaotic envelope; range 8 and 64 are both worse (docs/VALIDATION.md round-5 campaign)"),
-    "stress_balance.ssa.fd.drag_jacobian": ("picard", None, "basal-drag linearization in the Newton sweeps: picard (default; frozen beta - robust at u -> 0 and 2x faster over full 5 km trajectories, where the exact direction triggers line-search/safeguard work on melt-season steps) | exact (d(beta u)/du; essential for drag-dominated streams like test N and fully-converged verification solves)"),
+    "stress_balance.ssa.fd.eta_endgame_range": (16.0, None, "endgame tightening of the Eisenstat-Walker forcing: once |F| <= range * tol, set the inner tolerance to land at ~tol/2 in one sweep instead of contracting by eta_max per sweep through the noise-floor grind (the last 3-4 warm sweeps otherwise burn ~68% of the Krylov work at eta = 0.3); 0 disables. Default 16 chosen at the 5 km north-star shape: trajectory shift 6e-5 relative volume = well inside the 2e-4 chaotic envelope (docs/VALIDATION.md round-5 campaign); its speed on the GPU is not measured"),
+    "stress_balance.ssa.fd.drag_jacobian": ("picard", None, "basal-drag linearization in the Newton sweeps: picard (default; frozen beta - robust at u -> 0, and cheaper over full 5 km trajectories, where the exact direction triggers line-search/safeguard work on melt-season steps) | exact (d(beta u)/du; essential for drag-dominated streams like test N and fully-converged verification solves)"),
     "stress_balance.ssa.fd.max_speed": (50.0e3, "m year-1", "hard clamp on SSA speeds (guards CFL dt collapse)"),
-    "stress_balance.ssa.fd.krylov_dot_dtype": ("auto", None, "accumulation dtype for Krylov/Newton dot products under f32 vectors: auto (default: float32 on the pure-f32 production path whose 3e-4 target sits far above the f32 dot noise - measured 5 km warm solve 56 -> 46 ms with unchanged iteration counts; float64 elsewhere) | float64 (emulated on TPU) | float32"),
+    "stress_balance.ssa.fd.krylov_dot_dtype": ("auto", None, "accumulation dtype for Krylov/Newton dot products under f32 vectors: auto (default: float32 on the pure-f32 production path whose 3e-4 target sits far above the f32 dot noise - unchanged iteration counts at 5 km; float64 elsewhere) | float64 | float32"),
     "stress_balance.ssa.fd.near_ksp_cap": (32, None, "Krylov iteration cap for Newton systems within 4x of the convergence target on the pure-f32 production path - near the f32 noise floor the system is noise and BiCGStab otherwise grinds to ksp_max_it (traced at 5 km: one 300-iteration breakdown sweep = 72% of a warm solve's Krylov work); ignored on float64/mixed/full-convergence solves"),
     "stress_balance.ssa.fd.safeguard_ksp_cap": (48, None, "Krylov iteration cap for Picard safeguard sweeps on the pure-f32 production path (frozen-coefficient systems solved to the loose warmup tolerance; more iterations on ill-posed noise only burn wall time); ignored on float64/mixed/full-convergence solves"),
     "stress_balance.ssa.fd.f32_production_rtol": (3.0e-4, None, "Newton residual target floor for the pure-f32 production carry (velocity-change stop active); the f32 residual floor is state-dependent (~1-2e-4 relative on margin-flicker states), so tighter targets grind noise (see docs/VALIDATION.md)"),
     "stress_balance.ssa.fd.mixed_production_rtol": (1.0e-4, None, "Newton residual target floor for the mixed (f64-carry) production solve when the velocity-change stop is active"),
     "stress_balance.blatter.metric_terms": (True, None, "sigma-coordinate chain-rule metric corrections in the Blatter membrane terms (vanish on flat base/uniform thickness)"),
-    "time_stepping.max_steps_per_segment": (600, None, "max adaptive steps per device while_loop dispatch; bounds single-XLA-execution wall time (the TPU runtime watchdog kills multi-minute dispatches) - callers re-dispatch until t_end, so the trajectory is unchanged"),
+    "time_stepping.max_steps_per_segment": (600, None, "max adaptive steps per device while_loop dispatch; bounds the wall time of one XLA execution, so the host regains control for output, signals and health checks at a bounded interval - callers re-dispatch until t_end, so the trajectory is unchanged"),
     "stress_balance.ssa.Schoof_regularizing_velocity": (1.0, "m year-1", "SSA strain-rate regularization velocity"),
     "stress_balance.ssa.Schoof_regularizing_length": (1000.0, "km", "SSA strain-rate regularization length"),
     "stress_balance.calving_front_stress_bc": (True, None, "apply calving-front pressure BC"),
@@ -344,10 +341,10 @@ PARAMETERS = {
 
     # --- output / runtime ----------------------------------------------------
     "runtime.verbosity": (2, None, "logging verbosity (PISM levels: 1 warnings, 2 summaries, 3 component detail, 4 solver detail, 5 trace)"),
-    "runtime.matmul_precision": ("highest", None, "jax default_matmul_precision for the f32 compute path: highest (f32 accumulate; required - bf16 MXU passes lose the SSA residual) | high | default"),
+    "runtime.matmul_precision": ("highest", None, "precision of the model's f32 matrix products (Blatter's column average): highest (full f32 products; on GPUs the XLA default may use TF32, which keeps ~3 decimal digits) | high | default. Passed to the products themselves, so library and CLI runs agree and no process-global JAX setting changes"),
     "runtime.float_dtype": ("float64", None, "float32 | float64: dtype of model fields"),
     "runtime.segment_years": (50.0, "years", "max model-years per jitted while_loop segment"),
-    "runtime.device_loop": (True, None, "run segments as on-device while_loops; False = host-dispatched steps (workaround for TPU runtimes that mishandle long nested while_loops)"),
+    "runtime.device_loop": (True, None, "run segments as on-device while_loops; False = host-dispatched steps (one dispatch per adaptive step, for debugging)"),
     "output.ice_free_thickness_standard": (0.01, "m", "reporting ice-free threshold"),
     "run_info.institution": ("", None, "institution attribute for output files"),
     "run_info.title": ("", None, "title attribute for output files"),
@@ -356,7 +353,7 @@ PARAMETERS = {
 # ---------------------------------------------------------------------------
 # Second tranche toward full ``src/pism_config.cdl`` parity (upstream names
 # kept verbatim so reference run scripts translate 1:1). Parameters for
-# features with a different TPU-native realization are still registered —
+# features with a different data-parallel realization are still registered —
 # the reference treats the CDL as the single source of CLI flags and
 # documentation, and so do we.
 # ---------------------------------------------------------------------------
@@ -397,8 +394,6 @@ PARAMETERS.update({
     "output.extra.stop_missing": (True, None, "error on unknown -extra_vars entries (reference output.extra.stop_missing); false drops them with a warning"),
     "time_stepping.count_time_steps": (False, None, "log the total number of adaptive steps at the end of the run (reference -count_time_steps)"),
     "surface.debm_simple.albedo_ocean": (0.1, None, "albedo of ice-free (ocean) cells in the dEBM-simple insolation melt"),
-    "runtime.tridiag.thomas_max_n": (64, None, "batched-tridiagonal dispatch: systems up to this length always use the Thomas scan on TPU (measured crossover, one v5e; see util/tridiag.py)"),
-    "runtime.tridiag.thomas_min_batch": (16384, None, "batched-tridiagonal dispatch: batches at least this wide use the Thomas scan regardless of length (each scan step saturates the VPU)"),
     "output.sizes.medium": ("velsurf_mag velbase_mag velbar_mag taud_mag tauc bmelt tillwat temppabase diffusivity climatic_mass_balance ice_surface_temp sftgif sftgrf sftflf flux_mag", None, "diagnostics appended to the output file with -o_size medium (reference output.sizes.medium)"),
     "output.sizes.big_2d": ("velsurf velbase wvelsurf flux_divergence dHdt surface_runoff_flux", None, "extra 2D fields for -o_size big_2d (reference output.sizes.big_2d)"),
     "output.sizes.big": ("temp temppa liqfrac uvel vvel wvel_rel strainheating", None, "extra 3D fields for -o_size big, on top of medium + big_2d (reference output.sizes.big)"),
@@ -759,7 +754,7 @@ PARAMETERS.update({
     "geometry.update.use_surface_mass_balance": (True, None, "apply the surface mass balance in the mass-continuity source term (off: dynamics-only thickness evolution)"),
 
     # --- output ------------------------------------------------------------------
-    "output.variable_order": ("yxz", None, "[unimplemented] in-file dimension order of output variables (-o_order); the TPU-native writer stores the CF-standard (time, z, y, x) = yxz order natively"),
+    "output.variable_order": ("yxz", None, "[unimplemented] in-file dimension order of output variables (-o_order); the writer stores the CF-standard (time, z, y, x) = yxz order natively"),
     "output.runtime.viewer.variables": ("", None, "comma list of diagnostics rendered by the runtime map viewer (-view)"),
     "output.timeseries.variables": ("ice_volume_glacierized,ice_area_glacierized,max_velocity", None, "default scalar diagnostics written to -ts_file (-ts_vars)"),
     "output.async": (True, None, "overlap device->host transfers and NetCDF writes with the device loop (writer thread; the reference's parallel-I/O role). False = synchronous writes"),
@@ -771,8 +766,7 @@ PARAMETERS.update({
     "inverse.method": ("lbfgs", None, "optimizer of the -inverse driver: lbfgs (bounded L-BFGS with the TAO-style convergence ladder, the reference blmvm role) | adam"),
 
     # --- runtime (rebuild-native) ----------------------------------------------
-    "runtime.jit.cache_dir": ("", None, "persistent XLA compilation-cache directory (jax compilation cache); reuses compiled executables across processes — the ~40 s first-step compile of a 5 km hybrid drops to seconds on a warm cache"),
-    "runtime.platform": ("", None, "force the JAX platform (cpu | tpu; the -platform flag). Empty = default backend"),
+    "runtime.jit.cache_dir": ("", None, "persistent XLA compilation-cache directory (jax compilation cache); reuses compiled executables across processes. Ignored when JAX_COMPILATION_CACHE_DIR is set; empty = <checkout>/.jax_cache (pism_tpu/util/compile_cache.py)"),
+    "runtime.platform": ("", None, "force the JAX platform (cpu | gpu; the -platform flag). Empty = default backend"),
     "runtime.profile.directory": ("", None, "write a jax profiler trace of the run to this directory (-profile; reference -profile/-log_view role)"),
-    "runtime.pallas.interpret": (False, None, "run all Pallas kernels in interpreter mode (debugging: same semantics on any backend, much slower)"),
 })

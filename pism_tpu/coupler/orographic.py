@@ -61,8 +61,8 @@ class OrographicPrecipitation(AtmosphereModel):
         self._ky = jnp.asarray(KY)
 
     def precipitation_field(self, surface):
-        # spectra stay in the field precision (complex64 under float32 —
-        # the TPU FFT does not support complex128)
+        # spectra stay in the field precision (complex64 under float32), so
+        # an f32 run does not silently promote to complex128
         h2 = jnp.asarray(surface)
         g = self.grid
         h = h2 - jnp.mean(h2)

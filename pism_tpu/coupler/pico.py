@@ -149,7 +149,7 @@ class Pico(OceanModel):
         if self.exclude_rises:
             # reference PicoGeometry ice rises: grounded patches not part of
             # the main grounded body do not seed the grounding-line distance.
-            # TPU-native reconstruction: the main body is the grounded
+            # on-device reconstruction: the main body is the grounded
             # connected component holding the thickest grounded ice (device
             # flood fill, no gather-to-host).
             H = geometry.ice_thickness

@@ -1,7 +1,7 @@
 """Streamed time-series forcing with asynchronous read-ahead.
 
 The reference's ``-atmosphere given``/``-surface given`` read monthly
-forcing fields from NetCDF on the fly during the run; the TPU rebuild must
+forcing fields from NetCDF on the fly during the run; this rebuild must
 do the same without stalling the device loop on file I/O (SURVEY.md §5
 hard part: "async prefetch of forcing time slices"). Small forcings are
 simply pre-loaded to the device as ``(Nt, My, Mx)`` stacks (see

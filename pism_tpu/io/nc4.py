@@ -7,17 +7,28 @@ files ARE HDF5 files; this module writes HDF5 with netCDF-4 conventions
 ``_NCProperties``) so standard NetCDF tools (ncdump, xarray, PISM itself)
 can open our output, without requiring the netCDF4 python package.
 
-On TPU, fields are fetched from device and written on the host (the analog
-of PISM's collective writes); inside jitted loops I/O goes through
-host callbacks scheduled at segment boundaries (see model.output).
+Fields are fetched from the device and written on the host (the analog of
+PISM's collective writes); inside jitted loops I/O goes through host
+callbacks scheduled at segment boundaries (see model.output).
+
+h5py is an I/O-only dependency: the model's stepping path never imports it,
+and a NetCDF-4 file opened without it raises :data:`H5PY_MISSING`.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-import h5py
 import numpy as np
+
+try:
+    import h5py
+except ImportError:   # output-only dependency; see the module docstring
+    h5py = None
+
+H5PY_MISSING = ("NetCDF-4 (HDF5) files need the h5py package, which is not "
+                "installed: install h5py or write classic NetCDF with "
+                "-o_format netcdf3 -o_size small")
 
 _NC_PROPS = b"version=2,pism_tpu=0.1"
 
@@ -51,6 +62,8 @@ class File:
         cls.compression_level = int(level)
 
     def __init__(self, path: str, mode: str = "r", format: str = "netcdf4"):
+        if h5py is None:
+            raise ImportError(H5PY_MISSING)
         self.h5 = h5py.File(path, mode)
         if mode in ("w", "w-", "x"):
             self.h5.attrs.create("_NCProperties", _NC_PROPS)

@@ -117,15 +117,14 @@ class LingleClark:
 
         U_hat = jnp.fft.rfft2(self._pad(U).astype(q.dtype))
         # keep the spectral coefficients in the field precision: mixing the
-        # f64 wavenumber tables into c64 spectra promotes to complex128,
-        # which the TPU FFT does not support
+        # f64 wavenumber tables into c64 spectra would promote an f32 run's
+        # FFTs to complex128 (twice the bytes, and a different result)
         rdt = q.dtype
         alpha = (self.rho_r * self.g + self.D * self.k4).astype(rdt)
         two_eta_k = (2.0 * self.eta
                      * jnp.maximum(self.k, 1e-12)).astype(rdt)
         # dt arrives as an f64 scalar from the interval gate; dividing the
-        # f32 spectra by it would promote the whole spectral update (and
-        # the TPU FFT has no f64)
+        # f32 spectra by it would promote the whole spectral update to f64
         a_coef = two_eta_k / jnp.asarray(dt).astype(rdt)
         U_hat_new = ((a_coef - 0.5 * alpha) * U_hat - q_hat) / (a_coef + 0.5 * alpha)
         # k = 0 mode: immediate local isostatic equilibrium has no meaning on

@@ -1,7 +1,7 @@
 """Blatter-Pattyn 3D first-order ("higher-order") stress balance.
 
-Rebuild of PISM ``src/stressbalance/blatter/`` — with a different, TPU-native
-discretization. The reference uses Q1 FEM on an extruded mesh with PETSc
+Rebuild of PISM ``src/stressbalance/blatter/`` — with a different,
+matrix-free data-parallel discretization. The reference uses Q1 FEM on an extruded mesh with PETSc
 SNES + geometric multigrid (vertical semi-coarsening). Here the equations
 are discretized in a terrain-following coordinate zeta = z_above_base / H
 on the existing (My, Mx, Mz) grid and solved matrix-free:
@@ -32,7 +32,7 @@ stress-free.
 Solver: Newton iterations with exact autodiff JVPs, BiCGStab, and a
 vertical-line preconditioner: the dominant d/dz(nu d/dz) coupling plus the
 horizontal diagonal is inverted per column with the batched Thomas kernel —
-the TPU-natural analog of the reference's vertical semi-coarsening
+the data-parallel analog of the reference's vertical semi-coarsening
 multigrid. Verified in tests/test_blatter.py against the analytic
 inclined-slab (SIA-limit) and plug-flow (SSA-limit) solutions, the van der
 Veen unconfined-shelf strain rate + the independently verified SSAFD CFBC
@@ -108,6 +108,11 @@ class BlatterSolver:
         # factor): softness scales by e, so hardness scales by e^(-1/n)
         self.e_factor = cfg.get_number(
             "stress_balance.blatter.enhancement_factor")
+        # runtime.matmul_precision for the f32 column average below (on
+        # GPUs XLA's default f32 product may run in TF32); passed to the
+        # product itself so that no process-global JAX setting changes
+        self.matmul_precision = \
+            cfg.get_string("runtime.matmul_precision") or None
         if self.sliding_law is None:
             self.sliding_law = SlidingLaw.from_config(cfg)
         # normalized vertical coordinate from the ice grid levels
@@ -461,7 +466,8 @@ class BlatterSolver:
         dz = np.diff(zeta)
         w = np.concatenate([dz[:1] * 0.5, 0.5 * (dz[1:] + dz[:-1]),
                             dz[-1:] * 0.5])
-        return jnp.tensordot(f3, jnp.asarray(w, f3.dtype), axes=([-1], [0]))
+        return jnp.tensordot(f3, jnp.asarray(w, f3.dtype), axes=([-1], [0]),
+                             precision=self.matmul_precision)
 
     def regrid_to_z(self, f3, H):
         """Interpolate a zeta-grid column field onto the model's fixed

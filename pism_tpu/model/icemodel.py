@@ -5,7 +5,7 @@ Rebuild of PISM ``src/icemodel/`` (``IceModel::run``/``step``,
 sub-model updates within a step, and selects the adaptive time step as the
 min over stability limits and component restrictions.
 
-TPU-native structure: the *entire* inner loop — stress balance, dt
+Accelerator structure: the *entire* inner loop — stress balance, dt
 selection, energy step, mass transport, couplers — is one jitted
 ``lax.while_loop`` ("segment") that advances from t0 to t_end on device with
 zero host synchronization; the host loop around it only handles output
@@ -143,11 +143,6 @@ class IceModel:
     # stress_balance.prescribed_sliding.file by the CLI)
     prescribed_u: object = None
     prescribed_v: object = None
-    # ("y", "x") jax.sharding.Mesh for spatially-sharded runs. GSPMD
-    # partitions the jnp compute path from the input shardings alone; the
-    # mesh is only needed to route the fused Pallas stencils through
-    # shard_map + ppermute halos (ops.pallas_sharded, SURVEY §2.5)
-    mesh: object = None
 
     def __post_init__(self):
         cfg = self.config
@@ -277,9 +272,6 @@ class IceModel:
             nmm = jnp.asarray(self.no_model_mask, bool)
             if self.ssa is not None and hasattr(self.ssa, "no_model_mask"):
                 self.ssa.no_model_mask = nmm
-        if self.mesh is not None and self.ssa is not None \
-                and hasattr(self.ssa, "mesh"):
-            self.ssa.mesh = self.mesh
         if sb_model.startswith("prescribed_sliding") \
                 and self.prescribed_u is None:
             path = cfg.get_string("stress_balance.prescribed_sliding.file")
@@ -294,8 +286,7 @@ class IceModel:
             blatter=self.blatter, model=sb_model,
             compute_3d=self.energy_model is not None,
             no_model_mask=self.no_model_mask, sliding_mu=self.sliding_mu,
-            prescribed_u=self.prescribed_u, prescribed_v=self.prescribed_v,
-            mesh=self.mesh)
+            prescribed_u=self.prescribed_u, prescribed_v=self.prescribed_v)
         self.nmm_tauc = cfg.get_number("regional.no_model_yield_stress", "Pa")
 
         self.rho_i = cfg.get_number("constants.ice.density")
@@ -311,10 +302,6 @@ class IceModel:
             "energy.basal_melt.use_grounded_cell_fraction")
         self.part_grid = cfg.get_flag("geometry.part_grid.enabled")
         self.part_grid_iters = cfg.get_int("geometry.part_grid.max_iterations")
-        # debugging knob: run every Pallas kernel in interpreter mode
-        if cfg.get_flag("runtime.pallas.interpret"):
-            from ..ops import pallas_kernels as _pk
-            _pk.FORCE_INTERPRET = True
         self.subgl = cfg.get_flag("geometry.grounded_cell_fraction")
         self.skip_max = cfg.get_int("time_stepping.skip.max") \
             if cfg.get_flag("time_stepping.skip.enabled") else 1
@@ -329,10 +316,6 @@ class IceModel:
                 self.tillphi_target = read_and_regrid(
                     path, self.grid, ["usurf"])["usurf"]
 
-        # batched-tridiagonal dispatch crossover (util/tridiag.py)
-        from ..util import tridiag as _tri
-        _tri.THOMAS_MAX_N = cfg.get_int("runtime.tridiag.thomas_max_n")
-        _tri.THOMAS_MIN_BATCH = cfg.get_int("runtime.tridiag.thomas_min_batch")
         self.device_loop = cfg.get_flag("runtime.device_loop")
         self._advance_device = jax.jit(self._make_advance())
         self._step_jit = jax.jit(self._step)
@@ -580,7 +563,6 @@ class IceModel:
                         enhancement=self.stress_balance.e_sia,
                         rho=self.rho_i, g=self.stress_balance.g,
                         gradient_method=self.stress_balance.gradient_method,
-                        mesh=self.mesh,
                         d_limit=self.stress_balance.d_limit)
                     qe_d, qn_d = flux.qe, flux.qn
                 elif qe_d is None:
@@ -1094,11 +1076,9 @@ class IceModel:
         ``time_stepping.max_steps_per_segment``; when the adaptive dt
         collapses (margin flicker at fine grids) a long advance becomes
         several device dispatches instead of one arbitrarily-long XLA
-        execution — unbounded dispatches were killed by the TPU runtime
-        watchdog (observed round 3/4: multi-thousand-step segments at
-        5/10 km crash the worker; the same trajectory split into bounded
-        dispatches completes). The trajectory is identical either way —
-        dt depends on t_end, not on the dispatch split."""
+        execution, so the host regains control (output, signals, health
+        checks) at a bounded interval. The trajectory is identical either
+        way — dt depends on t_end, not on the dispatch split."""
         state = self.prepare_state(state)
         t_end = t + dt_cap
         total = None

@@ -62,13 +62,6 @@ class SSAFD:
     no_model_mask: Optional[jnp.ndarray] = None
     stored_surface: Optional[jnp.ndarray] = None
     stored_thickness: Optional[jnp.ndarray] = None
-    # ("y", "x") jax.sharding.Mesh: routes the fused Pallas matvec through
-    # shard_map + ppermute halos (ops.pallas_sharded) on sharded runs
-    mesh: object = None
-
-    def _sharded_mesh(self) -> bool:
-        from ..ops.sia import _sharded_mesh
-        return _sharded_mesh(self.mesh)
 
     def __post_init__(self):
         cfg = self.config
@@ -144,19 +137,17 @@ class SSAFD:
         if self.solve_dtype == "auto":
             # production runs (velocity-change stop active) never resolve
             # residuals below the f32 noise floor, and the per-sweep f64
-            # residual costs ~1 ms at 5 km while leaving the iteration
-            # history bit-for-bit identical (examples/ssa_eta_study.py:
-            # 52.2 -> 33.0 ms warm solve). Full-convergence runs (stop
-            # disabled: verification, inverse) keep the f64-carry mixed
-            # path, which reaches ~1e-6 relative residuals.
+            # residual leaves the iteration history bit-for-bit identical
+            # (examples/ssa_eta_study.py), so it is pure cost.
+            # Full-convergence runs (stop disabled: verification, inverse)
+            # keep the f64-carry mixed path, which reaches ~1e-6 relative
+            # residuals.
             chg = cfg.get_number("stress_balance.ssa.fd.velocity_change_rtol")
             self.solve_dtype = "float32" if chg > 0.0 else "mixed"
         self.precond_kind = cfg.get_string("stress_balance.ssa.fd.preconditioner")
         self.line_pcr_dtype = cfg.get_string(
             "stress_balance.ssa.fd.line_pcr_dtype")
         self.line_block = cfg.get_int("stress_balance.ssa.fd.line_block")
-        self.line_pcr_impl = cfg.get_string(
-            "stress_balance.ssa.fd.line_pcr_impl")
         # fracture-induced softening (Albrecht & Levermann 2012): the
         # reference applies it inside SSAFD::compute_nuH when
         # fracture_density.softening_lower_limit < 1
@@ -231,7 +222,7 @@ class SSAFD:
     # ------------------------------------------------------------------
     def build_problem(self, state: S.ModelState, tau_c=None,
                       differentiable_beta: bool = False,
-                      hardness=None, use_fused: bool = False,
+                      hardness=None,
                       water_column_pressure=None) -> dict:
         """Assemble the discrete SSA problem: masks, RHS (driving stress +
         calving-front terms), and the nonlinear residual closure. Used by
@@ -241,11 +232,6 @@ class SSAFD:
         ``hardness``: optional override of the vertically-averaged hardness
         field (the design variable of the reference's
         ``IP_SSAHardavForwardProblem`` hardness inversion).
-
-        ``use_fused``: apply the operator through the fused Pallas matvec
-        kernel (TPU, float32, non-periodic; forward-mode differentiable via
-        its custom JVP — reverse-mode callers like the inverse toolkit must
-        keep the default XLA operator).
 
         ``differentiable_beta``: by default the sliding-law drag coefficient
         is wrapped in stop_gradient inside the residual — beta ~
@@ -369,23 +355,8 @@ class SSAFD:
                 tc_eff = jnp.where(grounded_ice_mask, tc, 0.0)
             return self.sliding_law.beta(tc_eff, u, v, reg=reg) + beta_extra
 
-        if use_fused and self._sharded_mesh():
-            from ..ops.pallas_sharded import ssa_matvec_sharded
-            interp = jax.devices()[0].platform != "tpu"
-            mesh = self.mesh
-
-            def apply_op(u, v, nuH, beta):
-                return ssa_matvec_sharded(u, v, nuH.e, nuH.n, beta,
-                                          mesh, dx, dy, interp)
-        elif use_fused:
-            from ..ops.pallas_kernels import ssa_matvec_pallas
-
-            def apply_op(u, v, nuH, beta):
-                return ssa_matvec_pallas(u, v, nuH.e, nuH.n, beta,
-                                         dx, dy, False)
-        else:
-            def apply_op(u, v, nuH, beta):
-                return ssa_ops.apply_operator(u, v, nuH, beta, dx, dy, sh)
+        def apply_op(u, v, nuH, beta):
+            return ssa_ops.apply_operator(u, v, nuH, beta, dx, dy, sh)
 
         def residual(uv, tc=tau_c):
             """Nonlinear residual on the free rows (full fields in the
@@ -418,8 +389,8 @@ class SSAFD:
         Krylov iterations stagnate. ``"mixed"`` keeps the vectors (and all
         stencil work) in float32 but accumulates every Krylov/Newton dot
         product in float64 — the scalar recurrences are where f32
-        cancellation kills convergence; much faster on TPUs where f64 is
-        emulated.
+        cancellation kills convergence — and halves the bytes every
+        stencil pass moves.
         """
         out_dtype = state.geometry.ice_thickness.dtype
         if out_dtype != jnp.float64 and self.solve_dtype == "float64":
@@ -450,21 +421,7 @@ class SSAFD:
         dtype = H.dtype
         dx, dy = grid.dx, grid.dy
 
-        # fused Pallas matvec: TPU + float32 vectors + non-periodic grid
-        # (the mixed path below keeps the f64 outer problem on XLA ops).
-        # With a ("y", "x") mesh the sharded route runs the kernel per
-        # shard (shard_map + ppermute halos), so the VMEM bound is per
-        # local block and "on" also works in interpret mode on CPU meshes.
-        pk = self.config.get_string("stress_balance.ssa.fd.pallas_matvec")
-        nshards = self.mesh.size if self._sharded_mesh() else 1
-        fused = (pk == "on" or (pk == "auto"
-                                and jax.devices()[0].platform == "tpu")) \
-            and dtype == jnp.float32 \
-            and not (grid.periodic_x or grid.periodic_y) \
-            and ((H.shape[0] + 2) * (H.shape[1] + 2) * 4 * 16 // nshards
-                 < 96 * 2 ** 20)
         P = self.build_problem(state, tau_c, hardness=hardness,
-                               use_fused=fused,
                                differentiable_beta=(self.drag_jacobian
                                                     == "exact"),
                                water_column_pressure=water_column_pressure)
@@ -477,12 +434,12 @@ class SSAFD:
 
         chg_rtol_cfg_early = self.config.get_number(
             "stress_balance.ssa.fd.velocity_change_rtol")
-        # mixed precision: accumulate reductions in f64 under f32 vectors
-        # f64-emulated Krylov/Newton dot products under f32 vectors: the
-        # scalar recurrences are where f32 cancellation kills convergence.
+        # mixed precision: accumulate the Krylov/Newton dot products in f64
+        # under f32 vectors: the scalar recurrences are where f32
+        # cancellation kills convergence.
         # auto: f32 dots on the pure-f32 production path (target 3e-4 sits
-        # far above the f32 dot noise; measured 5 km warm solve 56 -> 46 ms
-        # with unchanged iteration counts), f64 dots wherever convergence
+        # far above the f32 dot noise; unchanged iteration counts at 5 km),
+        # f64 dots wherever convergence
         # semantics are tight (mixed / float64 / full-convergence solves).
         kdd = self.config.get_string("stress_balance.ssa.fd.krylov_dot_dtype")
         if kdd == "auto":
@@ -498,8 +455,8 @@ class SSAFD:
         # sweep — the f32 operator apply has a cancellation noise floor of
         # ~1e-4 relative, which is exactly where a pure-f32 Newton stalls),
         # while every Krylov iteration (the ~100x more numerous stencil
-        # applies) runs in float32. On TPUs with emulated f64 this keeps
-        # ~97% of the work in fast f32.
+        # applies) runs in float32, so ~97% of the stencil passes move
+        # half the bytes of an f64 solve.
         mixed = dtype == jnp.float32 and self.solve_dtype == "mixed"
         if mixed:
             f64c = lambda a: None if a is None else jnp.asarray(a, jnp.float64)
@@ -539,8 +496,7 @@ class SSAFD:
                 return ssa_ops.make_line_preconditioner(
                     nuH, beta, bc_mask, dx, dy, sh,
                     pcr_dtype=self.line_pcr_dtype,
-                    line_block=self.line_block,
-                    pcr_impl=self.line_pcr_impl)
+                    line_block=self.line_block)
             diag_u, diag_v = ssa_ops.operator_diagonal(nuH, beta, dx, dy, sh)
             diag_u = jnp.where(bc_mask, 1.0, jnp.maximum(diag_u, 1e-12))
             diag_v = jnp.where(bc_mask, 1.0, jnp.maximum(diag_v, 1e-12))
@@ -785,7 +741,7 @@ class SSAFD:
             # differ by factors, far above the f32 noise floor — and only
             # the chosen candidate gets the one high-precision residual
             # evaluation per sweep (in mixed mode the f64 stencil applies
-            # are emulated on TPU and were the dominant per-sweep cost)
+            # move twice the bytes of the f32 ones)
             d32 = lo(d)
 
             def trial_norm(alpha):
@@ -796,8 +752,8 @@ class SSAFD:
             # full step first; backtracking candidates are only evaluated
             # (lax.cond) when alpha=1 fails sufficient decrease — in the
             # common warm-started regime this saves 4 residual evaluations
-            # per sweep. Unrolled (not vmapped): the f32 residual may apply
-            # the fused Pallas matvec, which has no batching rule.
+            # per sweep. The backtracking candidates are unrolled, one
+            # residual evaluation each.
             n1 = trial_norm(alphas[0])
 
             def full_step(_):
@@ -833,7 +789,7 @@ class SSAFD:
                 # ill-posed noise and more iterations only burn wall time.
                 # The bound is a static Python int: the traced
                 # jnp.minimum(48, kmax) form shipped in round 3 crashed the
-                # TPU worker on 5/10 km multi-step segments (bisected).
+                # device runtime on 5/10 km multi-step segments (bisected).
                 picard_uv = free_hi(hi(picard_iter(
                     0, uv32, reg=reg_final,
                     max_iter=(min(self.safeguard_ksp_cap, self.ksp_max)

@@ -66,10 +66,6 @@ class StressBalance:
     # for the Weertman path: u_b = -mu tau_d (EISMINT II experiment E's
     # sector-limited sliding patch; reference IceEISModel sliding map)
     sliding_mu: object = None
-    # ("y", "x") jax.sharding.Mesh for spatially-sharded runs: routes the
-    # fused Pallas stencils through shard_map + ppermute halos
-    # (ops.pallas_sharded); None = single-device / plain GSPMD
-    mesh: object = None
 
     def __post_init__(self):
         self.sh = Shifter(self.grid)
@@ -106,8 +102,6 @@ class StressBalance:
         self.d_limit = (cfg.get_number("stress_balance.sia.max_diffusivity")
                         if cfg.get_flag("stress_balance.sia.limit_diffusivity")
                         else None)
-        _pal = cfg.get_string("stress_balance.sia.pallas")
-        self.sia_pallas = {"auto": None, "on": True, "off": False}[_pal]
         # age-coupled interglacial enhancement (reference
         # stress_balance.sia.e_age_coupling; EDC/EemianGreenland runs):
         # ice deposited during the Eemian or after the Holocene onset
@@ -285,8 +279,7 @@ class StressBalance:
                 self.sia_flow_law, geom, state.enthalpy, grid, sh,
                 n=self.n_sia, enhancement=e_sia, rho=self.rho, g=self.g,
                 gradient_method=self.gradient_method,
-                theta_e=th_e, theta_n=th_n, mesh=self.mesh,
-                pallas=self.sia_pallas, d_limit=self.d_limit,
+                theta_e=th_e, theta_n=th_n, d_limit=self.d_limit,
                 no_model_mask=self.no_model_mask,
                 stored_surface=self.stored_surface,
                 regional_zero_gradient=self.regional_zero_gradient)

@@ -17,8 +17,8 @@ C2 = <b~^2>, C3 = <b~^3>, C4 = <b~^4> (the <b~> term vanishes by
 construction), so the per-step cost is a handful of elementwise ops; the
 moment fields are recomputed only when the bed changes.
 
-TPU mapping: the moving-window sums are ``lax.reduce_window`` adds (XLA
-lowers them to fused VPU scans), normalized by a same-shape window count so
+Device mapping: the moving-window sums are ``lax.reduce_window`` adds (XLA
+lowers them to fused window reductions), normalized by a same-shape window count so
 domain edges use the shrunken window rather than padded zeros.
 """
 

@@ -9,7 +9,7 @@ gather/scatter, every element quantity is a whole-(My, Mx) array (entry
 like PISM's element map), and the scatter of element contributions back to
 nodes is four rolled adds. On non-periodic axes the wrap row/column of
 elements is masked out by :func:`element_validity`. Everything fuses into a
-handful of VPU kernels; under a device mesh the rolls become GSPMD
+handful of fused kernels; under a device mesh the rolls become GSPMD
 collective-permutes exactly like the FD stencils.
 
 Reference square [-1,1]^2, node order a = 0..3: (-1,-1), (1,-1), (1,1),

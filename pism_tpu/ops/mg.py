@@ -3,7 +3,7 @@
 The reference leans on PETSc's preconditioner zoo (ILU/ASM/MG via
 ``-ssafd_ksp_*`` options) to keep KSP iteration counts bounded on
 ill-conditioned nuH fields (SURVEY.md §7 "hard parts"). The matrix-free
-TPU equivalent built here is a classical geometric V-cycle on the Picard
+equivalent built here is a classical geometric V-cycle on the Picard
 (frozen-coefficient) operator:
 
 - coefficients: cell-centered viscosity restricted by 2x2 full weighting,

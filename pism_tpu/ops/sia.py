@@ -5,8 +5,8 @@ gradients (Mahaffy / eta-transform / Haseloff schemes), the flow-law vertical
 integral giving the diffusivity D on cell faces, and the diffusive flux
 q = -D grad(s). In the reference this is a per-cell C++ loop over ghosted
 arrays; here it is a fused whole-array expression (the z-integral is a single
-reduction over the trailing axis) that XLA tiles onto the VPU; GSPMD supplies
-halos when the arrays are sharded.
+reduction over the contiguous trailing axis) that XLA fuses into a few loop
+and reduction kernels; GSPMD supplies halos when the arrays are sharded.
 
 D on a face: D = 2 e (rho g)^n |grad s|^(n-1) * K,
 K = integral_0^H A(E(z), p(H - z)) (H - z)^(n+1) dz   (z above base),
@@ -160,44 +160,12 @@ def _flow_integral(flow_law, E3, H_face, z, slope_face, rho, g, enhancement):
     return 2.0 * rho * g * K
 
 
-def _sharded_mesh(mesh) -> bool:
-    """A ("y", "x") device mesh with more than one device: route the fused
-    kernels through ``ops.pallas_sharded`` (shard_map + ppermute halos)."""
-    return (mesh is not None and getattr(mesh, "size", 1) > 1
-            and tuple(mesh.axis_names) == ("y", "x"))
-
-
-def _pallas_eligible(flow_law, enthalpy, grid, H, gradient_method,
-                     theta_e, theta_n, mesh=None) -> bool:
-    """Route to the fused Pallas TPU kernel when it computes the identical
-    quantity: Mahaffy gradients, clamped (non-periodic) ghosts, f32 fields,
-    Paterson-Budd-family softness, no bed-smoother multipliers.
-
-    Without a mesh, single-device only: a bare pallas_call is not
-    auto-partitioned by GSPMD, and its edge-clamp ghost padding would clamp
-    at shard (not domain) boundaries. With a ("y", "x") mesh the sharded
-    route (``ops.pallas_sharded``: per-shard kernels on ppermute-haloed
-    blocks) lifts that restriction — the SURVEY §2.5 solver-comm target."""
-    import jax
-    return ((jax.device_count() == 1 or _sharded_mesh(mesh))
-            and jax.devices()[0].platform == "tpu"
-            and H.dtype == jnp.float32
-            and gradient_method == "mahaffy"
-            and theta_e is None and theta_n is None
-            and not grid.periodic_x and not grid.periodic_y
-            and (enthalpy is None or all(
-                hasattr(flow_law, a) for a in
-                ("A_cold", "A_warm", "Q_cold", "Q_warm", "T_critical", "R"))))
-
-
 def diffusivity(flow_law, geometry, enthalpy: Optional[jnp.ndarray], grid,
                 sh: Shifter, *, n: float = 3.0, enhancement: float = 1.0,
                 rho: float = 910.0, g: float = 9.81,
                 gradient_method: str = "mahaffy",
                 theta_e: Optional[jnp.ndarray] = None,
                 theta_n: Optional[jnp.ndarray] = None,
-                pallas: Optional[bool] = None,
-                mesh=None,
                 d_limit: Optional[float] = None,
                 no_model_mask: Optional[jnp.ndarray] = None,
                 stored_surface: Optional[jnp.ndarray] = None,
@@ -206,8 +174,6 @@ def diffusivity(flow_law, geometry, enthalpy: Optional[jnp.ndarray], grid,
 
     theta_e/theta_n: Schoof bed-smoother multipliers in [0, 1] on the faces
     (1 = no roughness correction).
-    pallas: force the fused Pallas kernel on/off; None = auto (TPU, f32,
-    mahaffy, non-periodic, Paterson-Budd-family law).
     d_limit: cap the staggered diffusivity at this value (PISM
     ``stress_balance.sia.limit_diffusivity`` + ``max_diffusivity``); the
     flux uses the capped D, so margin cliffs stop collapsing the adaptive
@@ -221,53 +187,6 @@ def diffusivity(flow_law, geometry, enthalpy: Optional[jnp.ndarray], grid,
     replaced gradient is zero instead (PISM ``regional.zero_gradient``).
     """
     H = geometry.ice_thickness
-
-    sharded = _sharded_mesh(mesh)
-    use_pallas = pallas
-    if jnp.ndim(enhancement) > 0:
-        # z-dependent (age-coupled) enhancement field: jnp path only — the
-        # fused kernels bake a scalar e into the closed-form integral
-        use_pallas = False
-    if use_pallas is None:
-        use_pallas = _pallas_eligible(flow_law, enthalpy, grid, H,
-                                      gradient_method, theta_e, theta_n,
-                                      mesh=mesh)
-        if no_model_mask is not None:
-            use_pallas = False   # regional gradient override: jnp path
-        local_size = H.size // (mesh.size if sharded else 1)
-        if use_pallas and enthalpy is None and local_size > 490_000:
-            use_pallas = False  # isothermal kernel is single-block VMEM
-    if use_pallas and sharded:
-        from . import pallas_sharded as ps
-        s = geometry.ice_surface_elevation
-        if enthalpy is not None:
-            De, Dn, qe, qn, max_D = ps.sia_flux_thermo_sharded(
-                H, s, enthalpy, mesh, grid=grid, n=n,
-                enhancement=enhancement, rho=rho, g=g,
-                dx=grid.dx, dy=grid.dy, EC=flow_law.EC, pb_law=flow_law,
-                d_cap=d_limit)
-        else:
-            A = float(flow_law.softness(jnp.zeros((), H.dtype),
-                                        jnp.zeros((), H.dtype)))
-            De, Dn, qe, qn, max_D = ps.sia_flux_sharded(
-                H, s, mesh, A=A, n=n, enhancement=enhancement, rho=rho,
-                g=g, dx=grid.dx, dy=grid.dy, d_cap=d_limit)
-        return SIAFlux(De=De, Dn=Dn, qe=qe, qn=qn, max_D=max_D)
-    if use_pallas:
-        from . import pallas_kernels as pk
-        s = geometry.ice_surface_elevation
-        if enthalpy is not None:
-            De, Dn, qe, qn, max_D = pk.sia_flux_thermo_pallas(
-                H, s, enthalpy, grid=grid, n=n, enhancement=enhancement,
-                rho=rho, g=g, dx=grid.dx, dy=grid.dy,
-                EC=flow_law.EC, pb_law=flow_law, d_cap=d_limit)
-        else:
-            A = float(flow_law.softness(jnp.zeros((), H.dtype),
-                                        jnp.zeros((), H.dtype)))
-            De, Dn, qe, qn, max_D = pk.sia_flux_pallas(
-                H, s, A=A, n=n, enhancement=enhancement, rho=rho, g=g,
-                dx=grid.dx, dy=grid.dy, d_cap=d_limit)
-        return SIAFlux(De=De, Dn=Dn, qe=qe, qn=qn, max_D=max_D)
     grad = surface_gradient(geometry, grid, sh, gradient_method, n)
 
     if no_model_mask is not None:

@@ -139,19 +139,18 @@ def operator_diagonal(nuH: NuH, beta, dx, dy, sh: Shifter):
 
 
 def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh: Shifter,
-                             pcr_dtype: str = "f32", line_block: int = 0,
-                             pcr_impl: str = "xla"):
+                             pcr_dtype: str = "f32", line_block: int = 0):
     """Alternating-direction line preconditioner: the u-equation is relaxed
     exactly along x-lines (its dominant ``4 nuH / dx^2`` normal-stress
     coupling) and the v-equation along y-lines, with the transverse and
     drag terms lumped on the diagonal (damped line-Jacobi). Each
     application is one batched parallel-cyclic-reduction solve per
-    component — fully fused full-tensor rounds on TPU, no per-row scan —
-    so it costs a few matvec equivalents while damping the stiff
-    along-flow coupling point-Jacobi cannot.
+    component — log2(n) whole-array rounds, no per-row scan — so it costs
+    a few matvec equivalents while damping the stiff along-flow coupling
+    point-Jacobi cannot.
 
     (PISM leans on PETSc's ILU/ASM zoo here; line relaxation is the
-    TPU-native equivalent for this strongly 1D-anisotropic operator.)
+    data-parallel equivalent for this strongly 1D-anisotropic operator.)
     """
     from ..util.tridiag import solve_batched_pcr
 
@@ -194,20 +193,12 @@ def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh: Shifter,
         return out[:, :n] if pad else out
 
     def _pcr(a_, b_, c_, d_):
-        # bf16 PCR on the TPU f32 path (stress_balance.ssa.fd.
-        # line_pcr_dtype, default bf16): the line preconditioner's PCR HBM
-        # traffic dominates the production Krylov iteration (~0.26 of
-        # 0.285 ms at 5 km; examples/component_timing.py round 5), and a
-        # preconditioner only needs an approximate application — the
-        # equilibrated (unit-diagonal) systems solve fine in bf16, and the
-        # result is a FIXED linear operator (deterministic), so plain
-        # BiCGStab stays valid. Measured: 61.2 -> 42.7 ms/step at 5 km.
-        # (A fused Pallas PCR was tried first and measured SLOWER — 80
-        # lane-rotates per solve; docs/VALIDATION.md.)
-        import jax as _jax
-        if pcr_dtype == "bf16" \
-                and _jax.devices()[0].platform == "tpu" \
-                and d_.dtype == jnp.float32:
+        # stress_balance.ssa.fd.line_pcr_dtype = bf16 runs the PCR rounds
+        # in bfloat16 on f32 vectors: a preconditioner only needs an
+        # approximate application, the equilibrated (unit-diagonal)
+        # systems are well scaled, and the result is still a FIXED linear
+        # operator, so plain BiCGStab stays valid.
+        if pcr_dtype == "bf16" and d_.dtype == jnp.float32:
             bf = jnp.bfloat16
             # signed pivot floor: bf16 rounding can drive weakly-dominant
             # pivots through zero (without it the first measured bf16 run
@@ -224,32 +215,9 @@ def make_line_preconditioner(nuH, beta, bc_mask, dx, dy, sh: Shifter,
             return _blocked(solver, a_, b_, c_, d_)
         return solver(a_, b_, c_, d_)
 
-    def _pcr_sub(a_, b_, c_, d_):
-        """Same solve with the system axis on SUBLANES (axis -2)."""
-        import jax as _jax
-        if pcr_impl == "pallas_sublane" \
-                and _jax.devices()[0].platform == "tpu" \
-                and d_.dtype == jnp.float32:
-            from .pallas_kernels import pcr_fused_sub
-            return pcr_fused_sub(a_, b_, c_, d_)
-        sw = lambda x: jnp.swapaxes(x, -1, -2)
-        return sw(_pcr(sw(a_), sw(b_), sw(c_), sw(d_)))
-
     def precond(r):
         ru, rv = r
         one_u = jnp.ones(ru.shape, ru.dtype)
-        if pcr_impl == "pallas_sublane":
-            # u-lines run along x = the LANE axis of (My, Mx) arrays;
-            # transpose them onto sublanes for the fused kernel. v-lines
-            # run along y = the sublane axis already — no transpose at all.
-            sw = lambda x: jnp.swapaxes(x, -1, -2)
-            zu = sw(_pcr_sub(sw(au.astype(ru.dtype)), sw(one_u),
-                             sw(cu.astype(ru.dtype)),
-                             sw(ru / bu.astype(ru.dtype))))
-            zv = _pcr_sub(av.astype(rv.dtype), one_u,
-                          cv.astype(rv.dtype),
-                          rv / bv.astype(rv.dtype))
-            return zu, zv
         zu = _pcr(au.astype(ru.dtype), one_u,
                   cu.astype(ru.dtype),
                   ru / bu.astype(ru.dtype))

@@ -4,7 +4,7 @@ The reference implements these as per-cell loops over DMDA-ghosted arrays
 (PISM ``src/stressbalance/sia/SIAFD.cc`` surface-gradient and diffusivity
 stencils, ``src/geometry/GeometryEvolution.cc`` flux divergence). Here every
 stencil is a whole-array shifted expression: under ``jit`` with sharded
-inputs, XLA GSPMD turns the shifts into halo exchanges over ICI; on one
+inputs, XLA GSPMD turns the shifts into halo exchanges between devices; on one
 device they are plain fused slices.
 
 Conventions

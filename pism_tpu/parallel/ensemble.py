@@ -3,9 +3,9 @@
 The reference runs parameter ensembles as independent MPI jobs driven by
 shell scripts (SURVEY.md §2.5 "data parallel"); here an ensemble is ONE SPMD
 program: the member axis is vmapped over the jitted segment runner and can
-be sharded over a leading "e" mesh axis (across pod slices / DCN), while
-each member's (y, x) fields shard over the remaining mesh axes. This is the
-BASELINE "100-member paleo ensemble on a pod" configuration.
+be sharded over a leading "e" mesh axis, while each member's (y, x) fields
+shard over the remaining mesh axes. This is the BASELINE "100-member paleo
+ensemble" configuration.
 
 Per-member parameters enter through a ``params -> surface forcing`` hook:
 the surface model receives the member's parameter vector, so e.g. a
@@ -64,10 +64,10 @@ class EnsembleRunner:
     def shard(self, batched_state, mesh):
         """Place the batch on an ("e"[, "y", "x"]) mesh.
 
-        The combined layout — members over "e" (pod slices / DCN) AND each
-        member's domain over ("y", "x") (ICI) simultaneously — is the
-        BASELINE config-5 pod layout: ``make_mesh(devices, shape=(ny, nx),
-        ensemble=ne)`` with ne*ny*nx = device count. Validated by
+        The combined layout — members over "e" AND each member's domain
+        over ("y", "x") simultaneously — is the BASELINE config-5 layout:
+        ``make_mesh(devices, shape=(ny, nx), ensemble=ne)`` with
+        ne*ny*nx = device count. Validated by
         ``__graft_entry__.dryrun_multichip`` (2 members x 2x2 spatial on
         the 8-device CPU mesh, full hybrid chain)."""
         from jax.sharding import NamedSharding, PartitionSpec as P

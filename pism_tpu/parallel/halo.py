@@ -5,9 +5,8 @@ The reference refreshes ghost regions via PETSc DMDA scatters
 SURVEY.md §2.5). The default compute path here relies on XLA GSPMD to insert
 equivalent collective-permutes automatically for shifted-array stencils; this
 module provides the *manual* path — ``jax.lax.ppermute`` strip exchange
-inside ``shard_map`` — for hand-scheduled kernels (e.g. a Pallas SSA operator
-that wants halos resident in VMEM) and for validating GSPMD against an
-explicit implementation.
+inside ``shard_map`` — for hand-scheduled kernels that need their halos
+explicitly, and for validating GSPMD against an explicit implementation.
 
 Semantics match ``ops.stencils.shift``: periodic wrap or edge-replication
 ghosts at physical boundaries.

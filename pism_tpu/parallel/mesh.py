@@ -4,8 +4,10 @@ Replaces PISM's PETSc DMDA rank layout (``DMDACreate2d`` in
 ``src/util/Grid.cc``, ``-Nx/-Ny`` options) with a ``jax.sharding.Mesh`` over
 axes ("y", "x"); fields get ``NamedSharding(P("y", "x"))`` (3D fields keep z
 unsharded — columns are never decomposed, matching the reference). An
-optional leading "e" (ensemble) axis shards ensemble members across pod
-slices (DCN), the analog of PISM's embarrassingly-parallel ensembles.
+optional leading "e" (ensemble) axis shards ensemble members across groups
+of devices, the analog of PISM's embarrassingly-parallel ensembles. The
+mesh follows the algorithm: the devices of one host are joined all to all,
+so no torus shape is needed.
 """
 
 from __future__ import annotations
@@ -48,20 +50,17 @@ def sharding2d(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P("y", "x"))
 
 
-def sharding3d(mesh: Mesh) -> NamedSharding:
-    return NamedSharding(mesh, P("y", "x", None))
-
-
 def shard_state(state, mesh: Mesh):
-    """Place every array leaf of a state pytree with (y, x[, z]) sharding."""
-    s2, s3 = sharding2d(mesh), sharding3d(mesh)
+    """Place every 2D and 3D array leaf of a state pytree with (y, x)
+    sharding; a 3D field's trailing z axis stays whole. The spec is written
+    without a trailing ``None`` because that is the form XLA gives a
+    segment's outputs: a spec differing in form only is another jit cache
+    key, and every sharded run would compile its step twice."""
+    s2 = sharding2d(mesh)
 
     def place(leaf):
-        if hasattr(leaf, "ndim"):
-            if leaf.ndim == 2:
-                return jax.device_put(leaf, s2)
-            if leaf.ndim == 3:
-                return jax.device_put(leaf, s3)
+        if getattr(leaf, "ndim", 0) in (2, 3):
+            return jax.device_put(leaf, s2)
         return leaf
 
     return jax.tree_util.tree_map(place, state)

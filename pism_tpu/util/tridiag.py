@@ -2,20 +2,19 @@
 
 The reference solves one small tridiagonal system per (i, j) column per step
 inside a C++ loop (PISM ``src/util/ColumnSystem.cc``,
-``TridiagonalSystem::solve``). On TPU the natural layout is the transpose:
-whole-(My, Mx)-plane operations over the z axis. Two algorithms:
+``TridiagonalSystem::solve``). On an accelerator the natural layout is the
+transpose: whole-(My, Mx)-plane operations over the z axis. Two algorithms:
 
 - :func:`solve_batched_thomas` — forward sweep + back substitution as two
-  ``lax.scan``s (2n sequential elementwise steps). Best on CPU.
+  ``lax.scan``s (2n sequential elementwise steps).
 - :func:`solve_batched_pcr` — parallel cyclic reduction: ceil(log2 n)
   full-tensor elimination rounds with NO sequential dependence along z.
   Stable for the diagonally dominant systems the energy/age columns
   produce.
 
-:func:`solve_batched` dispatches by shape at trace time: on TPU, Thomas
-for short widely-batched systems (z-columns, each scan step saturates the
-vector units on a whole plane), PCR for long narrowly-batched ones (the
-SSA line preconditioner's x/y lines); Thomas everywhere on CPU.
+:func:`solve_batched` picks one of them at trace time from the platform
+(:func:`pism_tpu.util.dispatch.tridiag_method`). The SSA line
+preconditioner calls :func:`solve_batched_pcr` directly.
 
 System per column: a[k] x[k-1] + b[k] x[k] + c[k] x[k+1] = d[k], k = 0..n-1
 (a[0] and c[n-1] ignored). Batch axes lead: coefficients are (..., n).
@@ -27,6 +26,8 @@ import math
 
 import jax
 import jax.numpy as jnp
+
+from .dispatch import platform, tridiag_method
 
 
 def solve_batched_thomas(a, b, c, d):
@@ -128,34 +129,8 @@ def solve_batched_pcr(a, b, c, d, pivot_floor: float = 0.0):
 
 
 def solve_batched(a, b, c, d):
-    """Shape-dispatched batched tridiagonal solve; inputs (..., n), z last.
-
-    On TPU the crossover is the system length vs the batch width: for the
-    SHORT, WIDELY-batched z-columns of the energy/age steps (n ~ 31-61,
-    ~1e5 columns) the Thomas scan's 2n sequential steps each saturate the
-    vector units on a whole (My, Mx) plane and touch every coefficient
-    exactly once — measured 1.6x faster than PCR's ~log2(n) full-tensor
-    elimination rounds at the 5 km Greenland shape (chained-input timing,
-    one v5e chip). PCR wins for LONG systems with narrow batches (the SSA
-    line preconditioner: n ~ 300-560 lines batched over the transverse
-    axis), where 2n scan steps would serialize ~600 tiny kernels.
-    """
-    batch = 1
-    for s_ in d.shape[:-1]:
-        batch *= int(s_)
-    if jax.default_backend() == "tpu" and d.shape[-1] > THOMAS_MAX_N \
-            and batch < THOMAS_MIN_BATCH:
+    """Platform-dispatched batched tridiagonal solve; inputs (..., n), z
+    last (see :func:`pism_tpu.util.dispatch.tridiag_method`)."""
+    if tridiag_method(platform()) == "pcr":
         return solve_batched_pcr(a, b, c, d)
     return solve_batched_thomas(a, b, c, d)
-
-
-# Thomas/PCR crossover (measured 2026-08-21, one v5e chip, chained-input
-# timing): Thomas won by 1.6x at n=41 x 169k columns (5 km energy step) and
-# loses for the line preconditioner's n=301-561 lines batched over only the
-# transverse axis. The dispatch prefers Thomas whenever the batch is wide
-# (>= THOMAS_MIN_BATCH columns keep the VPU saturated per scan step even
-# for larger n); PCR only for long, narrowly-batched systems. Retune these
-# two constants if a new shape class appears (e.g. Mz = 65-129 fine
-# vertical grids).
-THOMAS_MAX_N = 64
-THOMAS_MIN_BATCH = 16384

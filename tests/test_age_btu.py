@@ -108,7 +108,7 @@ def test_btu_minimal():
     np.testing.assert_array_equal(np.asarray(flux), np.asarray(G))
 
 def test_pcr_matches_thomas():
-    """Parallel cyclic reduction (the TPU path) reproduces the Thomas scan
+    """Parallel cyclic reduction (the GPU path) reproduces the Thomas scan
     to machine precision on diagonally dominant batched systems."""
     import numpy as np
     from pism_tpu.util.tridiag import solve_batched_pcr, solve_batched_thomas

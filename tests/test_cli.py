@@ -185,3 +185,43 @@ def test_cli_pik_and_param_shorthands(tmp_path):
     assert cfg.get_number("basal_resistance.pseudo_plastic.q") == 0.4
     assert cfg.get_number(
         "basal_yield_stress.mohr_coulomb.till_phi_default") == 25.0
+
+
+def test_cli_output_without_h5py_fails_clearly(monkeypatch, capsys, tmp_path):
+    """h5py is an output-only dependency: asking for NetCDF-4 output
+    without it stops before any model work, with a message that names the
+    package and the netcdf3 alternative."""
+    from pism_tpu.io import nc4
+    monkeypatch.setattr(nc4, "h5py", None)
+    rc = main(["-eisII", "A", "-Mx", "5", "-My", "5", "-y", "1",
+               "-o", str(tmp_path / "out.nc")])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert "h5py" in err and "netcdf3" in err
+    assert not (tmp_path / "out.nc").exists()
+    with pytest.raises(ImportError, match="h5py"):
+        nc4.File(str(tmp_path / "x.nc"), "w")
+
+
+def test_cli_netcdf3_output_without_h5py(monkeypatch, tmp_path):
+    """The alternative the message names works without h5py: classic
+    NetCDF output is written through scipy and reads back."""
+    from pism_tpu.io import nc4
+    monkeypatch.setattr(nc4, "h5py", None)
+    out = tmp_path / "out.nc"
+    rc = main(["-eisII", "A", "-Mx", "5", "-My", "5", "-Mz", "5", "-y", "1",
+               "-o_format", "netcdf3", "-o", str(out)])
+    assert rc == 0
+    with open(out, "rb") as fh:
+        assert fh.read(3) == b"CDF"
+    with nc4.File(str(out)) as f:
+        assert f.has_variable("thk")
+
+
+@pytest.mark.parametrize("flag,expected", [("cpu", "cpu"), ("gpu", "cuda")])
+def test_cli_platform_names(flag, expected):
+    """-platform gpu must reach JAX as a backend it can start: JAX's own
+    "gpu" alias also asks for ROCm and fails where only CUDA is installed."""
+    from pism_tpu.cli import jax_platforms
+    assert build_parser().parse_args(["-platform", flag]).platform == flag
+    assert jax_platforms(flag) == expected

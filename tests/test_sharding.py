@@ -210,9 +210,8 @@ def test_regional_mode_mesh_invariance(devices):
 
 
 # ---------------------------------------------------------------------------
-# Sharded Pallas kernels (ops.pallas_sharded): bit-compare the shard_map +
-# ppermute-halo route (interpret mode on the CPU mesh) against the XLA
-# stencil path — the SURVEY §2.5 solver-comm target.
+# Hot-path operators under GSPMD: the SIA flux and the SSA operator jitted on
+# a state sharded over a 2x4 mesh match the single-device result.
 # ---------------------------------------------------------------------------
 
 def _dome(Mx, My, Lx, Ly, rng):
@@ -223,171 +222,111 @@ def _dome(Mx, My, Lx, Ly, rng):
     return H.astype(np.float32), bed.astype(np.float32)
 
 
-def test_sia_pallas_sharded_matches_xla(devices, rng):
-    """Sharded fused thermo SIA kernel == unsharded XLA path, on an
-    uneven (non-mesh-divisible) grid so the pad-and-crop path runs."""
+@pytest.mark.parametrize("law_kind", ["thermomechanical", "isothermal"])
+def test_sia_diffusivity_sharded_matches_single_device(devices, rng,
+                                                       law_kind):
+    """The SIA flux jitted over a 2x4 mesh (GSPMD halos) equals the
+    single-device result, for the enthalpy-coupled and the isothermal
+    laws, on a mesh-divisible 40x48 grid."""
     from pism_tpu.ops import sia as sia_ops
     from pism_tpu.ops.stencils import Shifter
     from pism_tpu.physics.rheology import flow_law_from_config
     from pism_tpu.physics.enthalpy_converter import EnthalpyConverter
 
-    Mx, My, Mz = 37, 45, 9
-    grid = Grid(Mx=Mx, My=My, Lx=300e3, Ly=360e3, Mz=Mz, Lz=4000.0)
-    cfg = Config({"runtime.float_dtype": "float32"})
-    EC = EnthalpyConverter.from_config(cfg)
-    law = flow_law_from_config(cfg, "sia", EC)
+    Mx, My, Mz = 48, 40, 9
+    grid = Grid(Mx=Mx, My=My, Lx=300e3, Ly=250e3, Mz=Mz, Lz=4000.0)
+    over = {"runtime.float_dtype": "float32"}
+    if law_kind == "isothermal":
+        over["stress_balance.sia.flow_law"] = "isothermal_glen"
+    cfg = Config(over)
+    law = flow_law_from_config(cfg, "sia", EnthalpyConverter.from_config(cfg))
     H, bed = _dome(Mx, My, grid.Lx, grid.Ly, rng)
     geom = new_geometry(jnp.asarray(H), jnp.asarray(bed))
     geom = jax.tree_util.tree_map(
         lambda a: a.astype(jnp.float32) if hasattr(a, "dtype")
         and a.dtype == jnp.float64 else a, geom)
-    E = jnp.asarray(
-        rng.uniform(9.0e4, 1.05e5, size=(My, Mx, Mz)).astype(np.float32))
+    E = None
+    if law_kind == "thermomechanical":
+        E = jnp.asarray(rng.uniform(9.0e4, 1.05e5, size=(My, Mx, Mz))
+                        .astype(np.float32))
     sh = Shifter(grid)
 
-    ref = sia_ops.diffusivity(law, geom, E, grid, sh, pallas=False)
+    @jax.jit
+    def flux(geom, E):
+        return sia_ops.diffusivity(law, geom, E, grid, sh, d_limit=50.0)
 
+    ref = flux(geom, E)
     mesh = make_mesh(devices, shape=(2, 4))
-    got = sia_ops.diffusivity(law, geom, E, grid, sh, pallas=True, mesh=mesh)
-
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    s2 = NamedSharding(mesh, P("y", "x"))
+    geom_s = jax.tree_util.tree_map(
+        lambda a: jax.device_put(a, s2) if getattr(a, "ndim", 0) == 2 else a,
+        geom)
+    E_s = None if E is None else jax.device_put(
+        E, NamedSharding(mesh, P("y", "x", None)))
+    got = flux(geom_s, E_s)
+    assert len(got.qe.devices()) == 8
     for name in ("De", "Dn", "qe", "qn"):
         a, b = np.asarray(getattr(ref, name)), np.asarray(getattr(got, name))
         scale = max(np.abs(a).max(), 1e-30)
-        np.testing.assert_allclose(b, a, rtol=0, atol=2e-5 * scale,
+        np.testing.assert_allclose(b, a, rtol=0, atol=2e-6 * scale,
                                    err_msg=name)
-    assert np.isfinite(float(got.max_D))
-
-
-def test_sia_pallas_sharded_isothermal_matches_xla(devices, rng):
-    from pism_tpu.ops import sia as sia_ops
-    from pism_tpu.ops.stencils import Shifter
-    from pism_tpu.physics.rheology import flow_law_from_config
-    from pism_tpu.physics.enthalpy_converter import EnthalpyConverter
-
-    Mx, My = 53, 41
-    grid = Grid(Mx=Mx, My=My, Lx=300e3, Ly=250e3)
-    cfg = Config({"runtime.float_dtype": "float32",
-                  "stress_balance.sia.flow_law": "isothermal_glen"})
-    EC = EnthalpyConverter.from_config(cfg)
-    law = flow_law_from_config(cfg, "sia", EC)
-    H, bed = _dome(Mx, My, grid.Lx, grid.Ly, rng)
-    geom = new_geometry(jnp.asarray(H), jnp.asarray(bed))
-    geom = jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float32) if hasattr(a, "dtype")
-        and a.dtype == jnp.float64 else a, geom)
-    sh = Shifter(grid)
-
-    ref = sia_ops.diffusivity(law, geom, None, grid, sh, pallas=False)
-    mesh = make_mesh(devices, shape=(2, 4))
-    got = sia_ops.diffusivity(law, geom, None, grid, sh, pallas=True,
-                              mesh=mesh)
-    for name in ("De", "Dn", "qe", "qn"):
-        a, b = np.asarray(getattr(ref, name)), np.asarray(getattr(got, name))
-        scale = max(np.abs(a).max(), 1e-30)
-        np.testing.assert_allclose(b, a, rtol=0, atol=2e-5 * scale,
-                                   err_msg=name)
+    assert float(got.max_D) == float(ref.max_D)
 
 
 def test_ssa_matvec_sharded_matches_xla(devices, rng):
-    """Sharded fused SSA matvec == XLA apply_operator, including the
-    physical-boundary clamp-shift semantics, on an uneven grid."""
+    """The SSA operator jitted over a 2x4 mesh (GSPMD halos) equals the
+    single-device XLA apply, including the physical-boundary clamp-shift
+    semantics and the JVP the Newton linearization uses."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
     from pism_tpu.ops import ssa as ssa_ops
-    from pism_tpu.ops.pallas_sharded import ssa_matvec_sharded
     from pism_tpu.ops.stencils import Shifter
 
-    Mx, My = 37, 29
+    Mx, My = 40, 32
     grid = Grid(Mx=Mx, My=My, Lx=200e3, Ly=160e3)
     sh = Shifter(grid)
     f32 = np.float32
-    u = rng.normal(size=(My, Mx)).astype(f32) * 1e-5
-    v = rng.normal(size=(My, Mx)).astype(f32) * 1e-5
-    nuH_e = rng.uniform(1e13, 1e15, size=(My, Mx)).astype(f32)
-    nuH_n = rng.uniform(1e13, 1e15, size=(My, Mx)).astype(f32)
-    beta = rng.uniform(1e8, 1e10, size=(My, Mx)).astype(f32)
+    fields = [rng.normal(size=(My, Mx)).astype(f32) * 1e-5,
+              rng.normal(size=(My, Mx)).astype(f32) * 1e-5,
+              rng.uniform(1e13, 1e15, size=(My, Mx)).astype(f32),
+              rng.uniform(1e13, 1e15, size=(My, Mx)).astype(f32),
+              rng.uniform(1e8, 1e10, size=(My, Mx)).astype(f32)]
+    tangents = [rng.normal(size=(My, Mx)).astype(f32) * 1e-6,
+                rng.normal(size=(My, Mx)).astype(f32) * 1e-6]
 
-    ref = ssa_ops.apply_operator(jnp.asarray(u), jnp.asarray(v),
-                                 ssa_ops.NuH(jnp.asarray(nuH_e),
-                                             jnp.asarray(nuH_n)),
-                                 jnp.asarray(beta), grid.dx, grid.dy, sh)
+    def op(u, v, nuH_e, nuH_n, beta):
+        return ssa_ops.apply_operator(u, v, ssa_ops.NuH(nuH_e, nuH_n), beta,
+                                      grid.dx, grid.dy, sh)
 
+    @jax.jit
+    def apply_and_jvp(u, v, nuH_e, nuH_n, beta, du, dv):
+        return jax.jvp(lambda a, b: op(a, b, nuH_e, nuH_n, beta),
+                       (u, v), (du, dv))
+
+    ref = apply_and_jvp(*map(jnp.asarray, fields + tangents))
     mesh = make_mesh(devices, shape=(2, 4))
-    got = ssa_matvec_sharded(jnp.asarray(u), jnp.asarray(v),
-                             jnp.asarray(nuH_e), jnp.asarray(nuH_n),
-                             jnp.asarray(beta), mesh, grid.dx, grid.dy, True)
-    for a, b, name in ((ref[0], got[0], "Au"), (ref[1], got[1], "Av")):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = np.abs(a).max()
-        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5 * scale,
-                                   err_msg=name)
-
-    # JVP (the Newton linearization path) agrees too
-    du = rng.normal(size=(My, Mx)).astype(f32) * 1e-6
-    dv = rng.normal(size=(My, Mx)).astype(f32) * 1e-6
-
-    def f_ref(uu, vv):
-        return ssa_ops.apply_operator(
-            uu, vv, ssa_ops.NuH(jnp.asarray(nuH_e), jnp.asarray(nuH_n)),
-            jnp.asarray(beta), grid.dx, grid.dy, sh)
-
-    def f_got(uu, vv):
-        return ssa_matvec_sharded(uu, vv, jnp.asarray(nuH_e),
-                                  jnp.asarray(nuH_n), jnp.asarray(beta),
-                                  mesh, grid.dx, grid.dy, True)
-
-    _, t_ref = jax.jvp(f_ref, (jnp.asarray(u), jnp.asarray(v)),
-                       (jnp.asarray(du), jnp.asarray(dv)))
-    _, t_got = jax.jvp(f_got, (jnp.asarray(u), jnp.asarray(v)),
-                       (jnp.asarray(du), jnp.asarray(dv)))
-    for a, b in zip(t_ref, t_got):
-        a, b = np.asarray(a), np.asarray(b)
-        np.testing.assert_allclose(b, a, rtol=0,
-                                   atol=1e-5 * max(np.abs(a).max(), 1e-30))
+    s2 = NamedSharding(mesh, P("y", "x"))
+    got = apply_and_jvp(*(jax.device_put(jnp.asarray(a), s2)
+                          for a in fields + tangents))
+    assert len(got[0][0].devices()) == 8
+    for part in (0, 1):          # primal, tangent
+        for a, b in zip(ref[part], got[part]):
+            a, b = np.asarray(a), np.asarray(b)
+            np.testing.assert_allclose(
+                b, a, rtol=0, atol=1e-5 * max(np.abs(a).max(), 1e-30))
 
 
-@pytest.mark.slow
-def test_hybrid_sharded_pallas_step_matches_xla(devices):
-    """One adaptive segment of the FULL hybrid chain with the sharded
-    Pallas kernels forced on (pallas_matvec=on + mesh) matches the plain
-    GSPMD/XLA sharded run."""
-    from pism_tpu.coupler.surface import Uniform as SurfUniform
+def test_sharded_segments_compile_once(devices):
+    """shard_state places 3D fields with the spec XLA gives a segment's
+    outputs, so the second segment of a sharded run reuses the compiled
+    step instead of compiling it again."""
+    from pism_tpu.verification import eismint2
 
-    Mx, My = 40, 48
-    grid = Grid(Mx=Mx, My=My, Lx=400e3, Ly=480e3, Mz=9, Lz=4000.0)
-
-    def build(pallas_on, mesh=None):
-        cfg = Config({
-            "stress_balance.model": "ssa+sia",
-            "energy.model": "enthalpy",
-            "basal_resistance.pseudo_plastic.enabled": True,
-            "basal_yield_stress.model": "mohr_coulomb",
-            "runtime.float_dtype": "float32",
-            "stress_balance.ssa.fd.pallas_matvec":
-                "on" if pallas_on else "off",
-        })
-        return IceModel(grid=grid, config=cfg, surface=SurfUniform(smb=0.0),
-                        mesh=mesh)
-
-    X, Y = np.meshgrid(grid.x, grid.y)
-    r2 = (X / (0.7 * grid.Lx)) ** 2 + (Y / (0.7 * grid.Ly)) ** 2
-    bed = (300.0 - 800.0 * r2).astype(np.float32)
-    H = (2000.0 * np.maximum(1.0 - r2, 0.0) ** 1.5 * (bed > -500)
-         ).astype(np.float32)
-
-    mesh = make_mesh(devices, shape=(2, 4))
-    state0 = ModelState(geometry=new_geometry(jnp.asarray(H),
-                                              jnp.asarray(bed)))
-
-    m_ref = build(False)
-    st_ref = jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float32) if hasattr(a, "dtype")
-        and a.dtype == jnp.float64 else a, m_ref.prepare_state(state0))
-    s1, t1, _ = m_ref.step_once(st_ref, 0.0, 0.5 * SPY)
-
-    m_pal = build(True, mesh=mesh)
-    # force the sharded SIA kernel on (CPU -> interpret inside shard_map)
-    s8, t8, _ = m_pal.step_once(shard_state(st_ref, mesh), 0.0, 0.5 * SPY)
-
-    assert t1 == t8
-    a1 = np.asarray(s1.geometry.ice_thickness)
-    a8 = np.asarray(s8.geometry.ice_thickness)
-    assert np.max(np.abs(a1 - a8)) / max(np.abs(a1).max(), 1e-30) < 1e-4
+    es = eismint2.setup("A", Mx=16, Mz=5, Lz=5000.0)
+    model = IceModel(grid=es.grid, config=es.config, surface=es.surface)
+    state = shard_state(model.prepare_state(es.state),
+                        make_mesh(devices, shape=(2, 4)))
+    assert state.enthalpy.ndim == 3
+    state, t, _ = model.step_once(state, 0.0, 100 * SPY)
+    model.step_once(state, t, 100 * SPY)
+    assert model._advance_device._cache_size() == 1

@@ -105,6 +105,39 @@ def test_operator_positive_definite(rng):
         assert xAx > 0.0
 
 
+def test_operator_jvp_is_bilinear(rng):
+    """A(u, v; nuH, beta) is linear in the velocities and in the
+    coefficients separately, so its JVP in all five arguments is
+    A(du, dv; nuH, beta) + A(u, v; dnuH, dbeta) — the rule the Newton
+    linearization relies on through plain autodiff."""
+    from pism_tpu.ops import ssa as ssa_ops
+    from pism_tpu.ops.stencils import Shifter
+    g = Grid(Mx=16, My=12, Lx=80e3, Ly=60e3)
+    sh = Shifter(g)
+
+    def fld(lo, hi):
+        return jnp.asarray(rng.uniform(lo, hi, g.shape2))
+
+    def op(u, v, e, n, beta):
+        return ssa_ops.apply_operator(u, v, ssa_ops.NuH(e, n), beta,
+                                      g.dx, g.dy, sh)
+
+    primals = (fld(-1e-5, 1e-5), fld(-1e-5, 1e-5), fld(1e13, 1e15),
+               fld(1e13, 1e15), fld(1e3, 1e9))
+    tangents = (fld(-1e-6, 1e-6), fld(-1e-6, 1e-6), fld(-1e12, 1e12),
+                fld(-1e12, 1e12), fld(-1e7, 1e7))
+    out, tan = jax.jvp(op, primals, tangents)
+    u, v, e, n, beta = primals
+    du, dv, de, dn, dbeta = tangents
+    rule = [a + b for a, b in zip(op(du, dv, e, n, beta),
+                                  op(u, v, de, dn, dbeta))]
+    for t, r, o in zip(tan, rule, op(*primals)):
+        np.testing.assert_allclose(np.asarray(t), np.asarray(r), rtol=1e-12,
+                                   atol=1e-12 * float(jnp.abs(r).max()))
+    for a, b in zip(out, op(*primals)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_krylov_solvers_agree(rng):
     """CG and BiCGStab agree on a mildly nonsymmetric SSA system."""
     from pism_tpu.ops import ssa as ssa_ops

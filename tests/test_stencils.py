@@ -90,9 +90,8 @@ def test_sia_diffusivity_limit():
     geom = new_geometry(jnp.asarray(H), jnp.zeros(grid.shape2))
     sh = Shifter(grid)
 
-    free = sia_ops.diffusivity(law, geom, None, grid, sh, pallas=False)
-    capped = sia_ops.diffusivity(law, geom, None, grid, sh, pallas=False,
-                                 d_limit=100.0)
+    free = sia_ops.diffusivity(law, geom, None, grid, sh)
+    capped = sia_ops.diffusivity(law, geom, None, grid, sh, d_limit=100.0)
     assert float(free.max_D) > 1e3
     assert float(capped.max_D) <= 100.0 + 1e-9
     assert np.all(np.asarray(capped.De) <= 100.0 + 1e-9)
@@ -116,10 +115,22 @@ def test_sia_diffusivity_limit():
     assert float(v_cap.max_u) < float(v_free.max_u) / 10.0
 
 
-def test_sia_diffusivity_limit_pallas_matches_xla(rng):
-    """The Pallas kernels apply the same d_cap as the XLA path."""
-    import jax
-    import numpy as np
+def _np_shift(a, jy, ix):
+    """numpy twin of ops.stencils.shift with edge-replication ghosts."""
+    pad = [(max(-jy, 0), max(jy, 0)), (max(-ix, 0), max(ix, 0))] \
+        + [(0, 0)] * (a.ndim - 2)
+    p = np.pad(a, pad, mode="edge")
+    My, Mx = a.shape[:2]
+    j0, i0 = max(jy, 0), max(ix, 0)
+    return p[j0:j0 + My, i0:i0 + Mx]
+
+
+def test_sia_diffusivity_limit_thermo_matches_numpy(rng):
+    """The d_limit cap on the thermomechanical SIA path agrees with an f64
+    numpy reference of the Mahaffy scheme: staggered thickness, enthalpy
+    and 4-point gradients, the trapezoid softness integral clipped to the
+    ice column, D = 2 (rho g)^n |grad s|^(n-1) K capped at d_limit, and
+    the flux from the capped D. The flow law enters as a black box."""
     from pism_tpu import Config, Grid
     from pism_tpu.state import new_geometry
     from pism_tpu.ops import sia as sia_ops
@@ -127,27 +138,47 @@ def test_sia_diffusivity_limit_pallas_matches_xla(rng):
     from pism_tpu.physics.rheology import flow_law_from_config
     from pism_tpu.physics.enthalpy_converter import EnthalpyConverter
 
-    grid = Grid(Mx=24, My=24, Lx=120e3, Ly=120e3, Mz=7, Lz=4000.0)
-    cfg = Config({"runtime.float_dtype": "float32"})
-    EC = EnthalpyConverter.from_config(cfg)
-    law = flow_law_from_config(cfg, "sia", EC)
+    grid = Grid(Mx=24, My=20, Lx=120e3, Ly=100e3, Mz=7, Lz=4000.0)
+    cfg = Config({})
+    law = flow_law_from_config(cfg, "sia", EnthalpyConverter.from_config(cfg))
     X, Y = np.meshgrid(grid.x, grid.y)
-    r2 = (X / 90e3) ** 2 + (Y / 90e3) ** 2
-    H = np.where(r2 < 0.6, 2200.0, 0.0).astype(np.float32)
-    geom = new_geometry(jnp.asarray(H), jnp.zeros(grid.shape2, jnp.float32))
-    geom = jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float32) if hasattr(a, "dtype")
-        and a.dtype == jnp.float64 else a, geom)
-    E = jnp.asarray(rng.uniform(9.0e4, 1.05e5,
-                                size=(24, 24, 7)).astype(np.float32))
-    sh = Shifter(grid)
+    r2 = (X / 90e3) ** 2 + (Y / 75e3) ** 2
+    H = np.where(r2 < 0.6, 2200.0 * (1.0 - 0.5 * r2), 0.0)
+    bed = 100.0 * np.sin(X / 30e3)
+    E = rng.uniform(9.0e4, 1.05e5, size=(20, 24, 7))
+    n, rho, g, d_limit = 3.0, 910.0, 9.81, 100.0
 
-    ref = sia_ops.diffusivity(law, geom, E, grid, sh, pallas=False,
-                              d_limit=100.0)
-    got = sia_ops.diffusivity(law, geom, E, grid, sh, pallas=True,
-                              d_limit=100.0)
-    for name in ("De", "Dn", "qe", "qn"):
-        a, b = np.asarray(getattr(ref, name)), np.asarray(getattr(got, name))
-        np.testing.assert_allclose(b, a, rtol=0,
-                                   atol=2e-5 * max(np.abs(a).max(), 1e-30),
+    geom = new_geometry(jnp.asarray(H), jnp.asarray(bed))
+    got = sia_ops.diffusivity(law, geom, jnp.asarray(E), grid, Shifter(grid),
+                              n=n, rho=rho, g=g, d_limit=d_limit)
+
+    s = np.asarray(geom.ice_surface_elevation, np.float64)
+    dx, dy = grid.dx, grid.dy
+    sh = _np_shift
+    sx_e = (sh(s, 0, 1) - s) / dx
+    sy_e = (sh(s, 1, 0) + sh(s, 1, 1) - sh(s, -1, 0) - sh(s, -1, 1)) / (4 * dy)
+    sx_n = (sh(s, 0, 1) + sh(s, 1, 1) - sh(s, 0, -1) - sh(s, 1, -1)) / (4 * dx)
+    sy_n = (sh(s, 1, 0) - s) / dy
+    z = np.asarray(grid.z, np.float64)
+
+    def K(Hf, Ef):
+        depth = np.maximum(Hf[..., None] - z, 0.0)
+        p = np.asarray(law.EC.pressure(jnp.asarray(depth)))
+        A = np.asarray(law.softness(jnp.asarray(Ef), jnp.asarray(p)))
+        f = A * depth ** (n + 1.0)
+        w = np.diff(np.minimum(z, Hf[..., None]), axis=-1)
+        return np.sum(0.5 * (f[..., 1:] + f[..., :-1]) * w, axis=-1)
+
+    C = 2.0 * (rho * g) ** n
+    De = C * (sx_e ** 2 + sy_e ** 2) ** ((n - 1) / 2) \
+        * K(0.5 * (H + sh(H, 0, 1)), 0.5 * (E + sh(E, 0, 1)))
+    Dn = C * (sx_n ** 2 + sy_n ** 2) ** ((n - 1) / 2) \
+        * K(0.5 * (H + sh(H, 1, 0)), 0.5 * (E + sh(E, 1, 0)))
+    assert De.max() > 2 * d_limit and De[De > 0].min() < d_limit
+    De, Dn = np.minimum(De, d_limit), np.minimum(Dn, d_limit)
+    ref = {"De": De, "Dn": Dn, "qe": -De * sx_e, "qn": -Dn * sy_n}
+    for name, a in ref.items():
+        np.testing.assert_allclose(np.asarray(getattr(got, name)), a,
+                                   rtol=1e-10, atol=1e-12 * np.abs(a).max(),
                                    err_msg=name)
+    assert float(got.max_D) == d_limit
